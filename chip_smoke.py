@@ -1,0 +1,388 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's SD-1.5 workflow on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--steps N]
+
+Run from the root of a checkout, on a machine with a CUDA card. Phases, each
+ending in ``torch.cuda.synchronize()`` so a fault surfaces where it happens;
+none catches its own failure:
+
+1. Device: the card's name and power limit (nvidia-smi), torch/CUDA versions.
+2. Build: compiles the kernel of ``univst_torch/csrc`` with nvcc (sm_90a).
+3. Kernels against their plain PyTorch versions, in bf16 at the shapes the
+   main path gives them (and a small fp32 context / Lq != L case): the
+   error against a tolerance that follows the output's scale
+   (``_err_over_tol``), a planted fault that the same check must reject,
+   kernel / plain / library times (CUDA events) and the card's least time
+   for the work (bound).
+4. Main path: ``SDVideoPipeline`` (SD-1.5 widths, 512 px, 16 frames, bf16,
+   seeded random weights) through content inversion with feature capture,
+   single-frame style inversion, mask propagation, stylization (style
+   pre-pass, injected 2-branch phase, stylized-only phase) and the chunked
+   temporal-VAE decode, plus the inversion -> reconstruction round trip.
+   The kernel launch counters are zeroed just before and read just after;
+   every kernel must have run, the video flash attention 10 times per
+   16-frame UNet forward.
+
+The last line is ``{"ok": true, "device": {...}}``; the lines before it hold
+the per-kernel JSON and the card's name and power limit. Any failed check
+exits non-zero. ``--steps`` defaults to 30, which keeps the run well inside
+its time limit and still runs both stylization phases (the reference's
+shift window closes after step 25 of its 50-step constants); 50 is the full
+workload.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_FP32 = 67e12    # H100 SXM fp32 (non-tensor) FLOP/s
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+TPU_KERNEL = "univst_tpu/attention/pallas_attention.py:193"
+
+
+def _sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def _time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls after one warm-up."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _nvidia_smi() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr}")
+    return res.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    import torch
+
+    smi = _nvidia_smi()
+    print(f"[device] {smi}")
+    print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+    return smi
+
+
+def phase_build():
+    from univst_torch import _build
+
+    t0 = time.time()
+    path = _build.build("video_flash_attention")
+    print(f"[build] {os.path.relpath(path, REPO)} in {time.time() - t0:.2f}s", flush=True)
+
+
+def _err_over_tol(got, want) -> float:
+    """``max |got - want| / (atol + rtol * |want|)``: the check passes at <= 1.
+
+    bf16: rtol 2**-6 is two bf16 ulps (both sides round an fp32 result to
+    bf16, and the kernel packs P to bf16 for the PV product); atol is 0.02 x
+    the plain output's rms, for elements near zero. With N(0, 1) inputs that
+    rms is about sqrt(e / keys) (0.015 at the 64x64 level), so the bar follows
+    the shape. fp32: 1e-5 absolute and relative (the same arithmetic up to
+    summation order).
+    """
+    import torch
+
+    if want.dtype == torch.bfloat16:
+        want = want.float()
+        atol, rtol = 0.02 * want.pow(2).mean().sqrt().item(), 2.0**-6
+    else:
+        atol, rtol = 1e-5, 1e-5
+    diff = (got.float() - want).abs()
+    if not torch.isfinite(diff).all():
+        return float("inf")
+    return (diff / (atol + rtol * want.abs())).max().item()
+
+
+def _vfa_case(b, f, h, l, dh, idx, dtype, lq=None, lc=None, ctx_valid=None, reps=5,
+              plant=False):
+    """Kernel vs plain (and SDPA on the expanded K/V) on one shape. With
+    ``plant``, also run the kernel with the scale of the padded depth (a
+    plausible fault) and require the same check to reject it."""
+    import torch
+    import torch.nn.functional as F
+
+    from univst_torch.attention.ops import cross_frame_kv
+    from univst_torch.attention.video_flash import (
+        slot_tables, video_flash_attention, video_flash_attention_plain,
+    )
+
+    lq = l if lq is None else lq
+    gen = torch.Generator(device="cuda").manual_seed(l * dh + len(idx))
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = r(b, f, h, lq, dh), r(b, f, h, l, dh), r(b, f, h, l, dh)
+    kw = {}
+    if lc:
+        kw = dict(ctx_k=r(b, f, h, lc, dh), ctx_v=r(b, f, h, lc, dh), ctx_valid=ctx_valid)
+    got = video_flash_attention(q, k, v, idx, **kw)
+    _sync()
+    want = video_flash_attention_plain(q, k, v, idx, **kw)
+    _sync()
+    err = (got.float() - want.float()).abs().max().item()
+    ratio = _err_over_tol(got, want)
+    if not ratio <= 1.0:
+        raise AssertionError(f"video_flash_attention {tuple(q.shape)} {idx} {dtype}: "
+                             f"kernel vs plain at {ratio:.3g}x the tolerance "
+                             f"(max abs err {err})")
+    planted = None
+    if plant:
+        pad = -(-dh // 16) * 16  # the MMA depth the kernel pads dh to
+        wrong = video_flash_attention(q, k, v, idx, sm_scale=pad**-0.5, **kw)
+        planted = _err_over_tol(wrong, want)
+        if not planted > 1.0:
+            raise AssertionError(f"the check passed a kernel scaled by 1/sqrt({pad}) "
+                                 f"instead of 1/sqrt({dh}) ({planted:.3g}x the tolerance)")
+        print(f"[kernel] planted fault (scale 1/sqrt({pad})) rejected at "
+              f"{planted:.3g}x the tolerance", flush=True)
+    ms = _time_ms(lambda: video_flash_attention(q, k, v, idx, **kw), reps)
+    plain_ms = _time_ms(lambda: video_flash_attention_plain(q, k, v, idx, **kw), 1)
+    library_ms = None
+    if not lc and lq == l:
+        # yardstick: PyTorch's fused attention on the expanded K/V
+        def heads(x):
+            return x.reshape(b * f, h, x.shape[3], dh)
+
+        def expand(x):
+            xt = x.permute(0, 1, 3, 2, 4).reshape(b * f, l, h * dh)
+            xe = cross_frame_kv(xt, f, idx)
+            return xe.reshape(b * f, -1, h, dh).transpose(1, 2).contiguous()
+
+        qh, ke, ve = heads(q), expand(k), expand(v)
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qh, ke, ve), reps)
+    _, mult = slot_tables(idx, f)
+    kept = int((mult > 0).sum())  # distinct source frames, summed over targets
+    elt = q.element_size()
+    flops = 4.0 * lq * dh * (l * kept + (ctx_valid or 0) * f) * b * h
+    # q read, out written, k/v read once; the kernel reads ctx_valid rows of ctx
+    nbytes = elt * (2 * q.numel() + k.numel() + v.numel()
+                    + (2 * b * f * h * ctx_valid * dh if lc else 0))
+    t_ops = flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    case = dict(shape=[b, f, h, lq, l, dh], indices=list(idx), dtype=str(dtype).split(".")[-1],
+                ctx=[lc, ctx_valid] if lc else None, max_abs_err=err, err_over_tol=ratio,
+                planted_err_over_tol=planted, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    print(f"[kernel] {json.dumps(case)}", flush=True)
+    return case
+
+
+def phase_kernels():
+    import torch
+
+    bf = torch.bfloat16
+    cases = [
+        _vfa_case(2, 16, 8, 4096, 40, (-1, 0, "first"), bf, plant=True),  # 64x64, base set, B=2
+        _vfa_case(2, 16, 8, 4096, 40, (-1, "first"), bf),      # 64x64 level, PnP set, B=2
+        _vfa_case(1, 16, 8, 4096, 40, (-1, 0, "first"), bf),   # 64x64 level, inversion
+        _vfa_case(1, 16, 8, 1024, 80, (-1, 0, "first"), bf),   # 32x32 level, inversion
+        _vfa_case(2, 16, 8, 1024, 80, (-1, "first"), bf),      # 32x32 level, PnP set, B=2
+        _vfa_case(1, 4, 2, 256, 40, ("first", -1, 0), bf, lq=300, lc=200, ctx_valid=77),
+        _vfa_case(1, 4, 2, 256, 64, ("first", -1, 0), torch.float32, lq=200, lc=90,
+                  ctx_valid=77),
+    ]
+    _sync()
+    return cases
+
+
+def _load_inputs(num_frames: int, px: int):
+    """The committed demo corpus: 16 content frames, a style image, the
+    first-frame mask."""
+    import numpy as np
+    from PIL import Image
+
+    from univst_torch.utils.io import load_style_image, load_video
+
+    ex = os.path.join(REPO, "examples")
+    frames = load_video(os.path.join(ex, "contents", "demo-fly"), num_frames, (px, px))
+    style = load_style_image(os.path.join(ex, "styles", "00033.png"), 1, (px, px))
+    mask0 = np.asarray(Image.open(os.path.join(ex, "masks", "demo-fly.png"))
+                       .resize((px, px), Image.NEAREST))
+    return frames, style, mask0
+
+
+def phase_main_path(steps: int):
+    """SD-1.5 at 512 px, 16 frames, bf16, on the card."""
+    import numpy as np
+    import torch
+
+    from univst_torch.attention.video_flash import video_flash_attention
+    from univst_torch.core.adain import latent_adain
+    from univst_torch.core.config import StyleTransferConfig
+    from univst_torch.methods.mask_propagation import (
+        propagate_masks, to_one_hot, upsample_and_binarize,
+    )
+    from univst_torch.pipelines.sd import SDVideoPipeline
+
+    nf, px, device = 16, 512, "cuda"
+    frames, style, mask0 = _load_inputs(nf, px)
+    t0 = time.time()
+    pipe = SDVideoPipeline.build(variant="sd15", num_frames=nf, dtype=torch.bfloat16,
+                                 capture_up_block=2, seed=0, device=device)
+    _sync()
+    print(f"[main] built sd15 (random weights, seed 0) in {time.time() - t0:.1f}s", flush=True)
+    ts = pipe.schedule.timesteps(steps)
+    cap_t = 301 if 301 in ts else int(ts[len(ts) // 2])
+    gen = torch.Generator(device=device).manual_seed(0)
+    stage = {}
+
+    def run(name, fn):
+        t = time.time()
+        out = fn()
+        _sync()
+        stage[name] = time.time() - t
+        print(f"[main] {name}: {stage[name]:.2f}s", flush=True)
+        return out
+
+    counters = {"video_flash_attention": video_flash_attention}
+    for fn in counters.values():
+        fn.launches = 0
+    t_main = time.time()
+    latents, ctx = run("encode", lambda: (pipe.encode_frames(frames, gen), pipe.encode_text("")))
+    traj, feat = run("content_inversion", lambda: pipe.invert(
+        latents, ctx, num_steps=steps, is_opt=True, capture_timestep=cap_t))
+    spipe = pipe.with_frames(1)
+
+    def style_inversion():
+        straj, _ = spipe.invert(spipe.encode_frames(style, gen), ctx, num_steps=steps,
+                                is_opt=False)
+        return straj
+
+    straj = run("style_inversion", style_inversion)
+
+    def mask_propagation():
+        fh, fw = feat.shape[1:3]
+        small = torch.nn.functional.interpolate(
+            torch.tensor(mask0, device=device)[None, None].float(), size=(fh, fw),
+            mode="nearest")[0, 0]
+        seg0 = to_one_hot((small > 0).long(), 2)
+        segs = propagate_masks(feat.float().reshape(nf, fh * fw, -1), seg0,
+                               generator=torch.Generator(device=device).manual_seed(0))
+        rest = upsample_and_binarize(segs, (fh, fw), mask0.shape[:2])
+        first = torch.as_tensor(np.where(mask0 > 0, 255, 0).astype(np.uint8), device=device)
+        return torch.cat([first[None], rest])
+
+    masks = run("mask_propagation", mask_propagation)
+
+    def stylize():
+        content_rev = torch.flip(traj, dims=[0])
+        style_rev = torch.flip(straj, dims=[0])[:, :1]
+        init = latent_adain(content_rev[0], style_rev[0])
+        return pipe.stylize_latents(content_rev, style_rev, init, torch.cat([ctx] * 3),
+                                    mask=masks.float() / 255.0,
+                                    cfg=StyleTransferConfig(num_steps=steps))
+
+    out = run("stylize", stylize)
+    chunks = run("decode", lambda: pipe.decode_latents_uint8_chunks(out, 8))
+    rec = run("reconstruction", lambda: pipe.reconstruct_latents(traj[-1], ctx, num_steps=steps))
+    main_s = time.time() - t_main
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    # checks
+    for name, x in (("trajectory", traj), ("feature", feat), ("style trajectory", straj),
+                    ("stylized latents", out), ("reconstruction", rec)):
+        if not torch.isfinite(x.float()).all():
+            raise AssertionError(f"{name} has non-finite values")
+    vals = set(torch.unique(masks).tolist())
+    if not vals <= {0, 255}:
+        raise AssertionError(f"masks hold values {sorted(vals)}, want {{0, 255}}")
+    video = torch.cat(chunks)
+    if tuple(video.shape) != (nf, px, px, 3) or video.dtype != torch.uint8:
+        raise AssertionError(f"frames {tuple(video.shape)} {video.dtype}")
+    if not video.float().std().item() > 0:
+        raise AssertionError("stylized frames are constant")
+    z0 = traj[0].double()
+    mse = ((rec.double() - z0) ** 2).mean().item()
+    psnr = 10 * np.log10((z0.max() - z0.min()).item() ** 2 / mse) if mse > 0 else float("inf")
+    if not np.isfinite(psnr):
+        raise AssertionError(f"reconstruction latent PSNR {psnr}")
+    # one 16-frame UNet forward per step of the content inversion, the
+    # reconstruction and the stylization (the style branch runs single-frame),
+    # each with the sparse-causal attentions at L >= 1024: 5 at 64x64, 5 at 32x32
+    want = 10 * 3 * steps
+    if launches["video_flash_attention"] != want:
+        raise AssertionError(f"video_flash_attention launched {launches} times, want {want}")
+    summary = dict(steps=steps, frames=nf, size=px, stage_s=stage, main_path_s=main_s,
+                   workflow_frames_per_s=nf / main_s,
+                   stylize_frames_per_s=nf / (stage["stylize"] + stage["decode"]),
+                   recon_latent_psnr_db=psnr, launches=launches,
+                   masks_foreground=float((masks > 0).float().mean().item()),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[main] {json.dumps(summary)}", flush=True)
+    return launches
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--steps", type=int, default=30)
+    args = p.parse_args(argv)
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: PyTorch is not importable: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the GPU port only",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    try:
+        import univst_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = phase_device()
+    phase_build()
+    cases = phase_kernels()
+    launches = phase_main_path(args.steps)
+
+    main_case = cases[0]
+    entry = dict(name="video_flash_attention", route="cuda",
+                 source="univst_torch/csrc/video_flash_attention.cu", replaces=TPU_KERNEL,
+                 launches=launches["video_flash_attention"],
+                 max_abs_err=max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16"),
+                 err_over_tol=max(c["err_over_tol"] for c in cases),
+                 planted_err_over_tol=main_case["planted_err_over_tol"],
+                 ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+                 bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+                 library_ms=main_case["library_ms"], shape=main_case["shape"],
+                 cases=cases)
+    print(json.dumps({"kernels": [entry]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,137 @@
+"""Acceptance of the PyTorch port against the committed goldens: the torch
+``run_workflow --backbone sd`` on ``examples/contents/demo-fly-tiny`` with the
+JAX package's tiny weights must meet the tolerances and the mask lock of
+tests/test_goldens.py.
+
+The goldens were produced by ``univst_tpu.cli.run_workflow`` with the CLI's
+default seed (33), which seeds both the random weights and the VAE
+posterior draw; mask propagation draws its anchor scores from
+``PRNGKey(0)``. Here the weights are those same JAX params, carried into a
+diffusers-layout checkpoint directory and passed as
+``--pretrained_model_path``. torch cannot reproduce JAX's random streams,
+so the workflow runs in this process with both draws taken from
+``jax.random`` exactly as the JAX CLIs take them, and handed to the port's
+explicit ``noise=`` / ``scores=`` inputs.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLD = os.path.join(REPO, "tests", "goldens")
+EXAMPLES = os.path.join(REPO, "examples")
+SEED = 33  # the stage CLIs' default --seed, which the goldens used
+WORKFLOW_ARGS = [
+    "--variant", "tiny", "--num_frames", "4", "--height", "64",
+    "--width", "64", "--time_steps", "10", "--platform", "cpu",
+    "--ft_timesteps", "301",
+]
+
+
+def _png(path):
+    return np.asarray(Image.open(path))
+
+
+def _write_checkpoint(root):
+    import jax.numpy as jnp
+    from safetensors.torch import save_file
+
+    from univst_tpu.pipelines.sd import SDVideoPipeline as JPipe
+    from univst_torch.models import convert as tcv
+
+    jp = JPipe.build(variant="tiny", num_frames=4, height=64, width=64, dtype=jnp.float32,
+                     seed=SEED)
+    for sub, name, sd in (
+        ("unet", "diffusion_pytorch_model.safetensors",
+         tcv.flax_unet_to_state_dict(jp.unet_params, jp.unet.cfg)),
+        ("vae", "diffusion_pytorch_model.safetensors",
+         tcv.flax_vae_to_state_dict(jp.vae_params, jp.vae.cfg)),
+        ("text_encoder", "model.safetensors",
+         tcv.flax_clip_to_state_dict(jp.text_params, jp.text_encoder.cfg)),
+    ):
+        os.makedirs(os.path.join(root, sub))
+        save_file(tcv.to_torch_state_dict(sd), os.path.join(root, sub, name))
+
+
+def _feed_jax_draws(monkeypatch):
+    """Route the JAX CLIs' random draws into the port's stages: the VAE
+    posterior noise of ``sample_latent`` under ``PRNGKey(SEED)``
+    (run_content_inversion_sd.py:41, run_style_inversion_sd.py:47) and the
+    anchor scores of ``propagate_masks`` under ``PRNGKey(0)``
+    (cli/mask_propagation.py:67, methods/mask_propagation.py:77,118)."""
+    import jax
+    import jax.numpy as jnp
+
+    from univst_torch.methods import mask_propagation as mp
+    from univst_torch.pipelines.sd import SDVideoPipeline
+
+    encode = SDVideoPipeline.encode_frames
+
+    def encode_with_jax_noise(self, frames, generator=None, noise=None):
+        f, h, w, _ = np.asarray(frames).shape
+        down = 2 ** (len(self.vae.cfg.block_out_channels) - 1)
+        draw = jax.random.normal(jax.random.PRNGKey(SEED), (f, h // down, w // down, 4),
+                                 jnp.float32)
+        return encode(self, frames, noise=torch.tensor(np.asarray(draw)))
+
+    propagate = mp.propagate_masks
+
+    def propagate_with_jax_scores(features, first_seg, cfg=mp.MaskPropConfig(),
+                                  generator=None, scores=None):
+        f, t, _ = features.shape
+        keys = jax.random.split(jax.random.PRNGKey(0), f - 1)
+        draw = np.stack([np.asarray(jax.random.uniform(k, (t,))) for k in keys])
+        return propagate(features, first_seg, cfg, scores=torch.tensor(draw))
+
+    monkeypatch.setattr(SDVideoPipeline, "encode_frames", encode_with_jax_noise)
+    monkeypatch.setattr(mp, "propagate_masks", propagate_with_jax_scores)
+
+
+@pytest.mark.slow
+@pytest.mark.xfail(strict=True, reason=(
+    "ROADMAP queue 3: the goldens were made in bf16, and torch rounds to bf16 after "
+    "every op where XLA keeps fp32 inside its fusions; 10 DDIM steps amplify the "
+    "gap to a 0.133 latent drift (0.102 allowed) and 29.2-29.6 dB on two frames"))
+def test_torch_workflow_meets_the_goldens(tmp_path, monkeypatch):
+    from univst_torch.cli import run_workflow
+
+    ckpt = tmp_path / "ckpt"
+    _write_checkpoint(str(ckpt))
+    out = tmp_path / "results"
+    _feed_jax_draws(monkeypatch)
+    run_workflow.main(run_workflow.build_parser().parse_args([
+        "--backbone", "sd", *WORKFLOW_ARGS, "--pretrained_model_path", str(ckpt),
+        "--content_path", os.path.join(EXAMPLES, "contents", "demo-fly-tiny"),
+        "--style_path", os.path.join(EXAMPLES, "styles", "tiny-00033.png"),
+        "--mask_path", os.path.join(EXAMPLES, "masks", "demo-fly-tiny.png"),
+        "--output_root", str(out)]))
+    inv = out / "contents-inv" / "sd" / "demo-fly-tiny"
+    got_f = torch.load(inv / "features" / "inversion_feature_map_2_block_301_step.pt",
+                       weights_only=True).float().flatten()
+    want_f = torch.load(os.path.join(GOLD, "feature_301.pt"), weights_only=True).float().flatten()
+    cos = torch.nn.functional.cosine_similarity(got_f, want_f, dim=0).item()
+    got_z = torch.load(inv / "inversion" / "ddim_latents_10.pt", weights_only=True).float()
+    want_z = torch.load(os.path.join(GOLD, "content_latents_final.pt"), weights_only=True).float()
+    err = (got_z - want_z).abs().max().item()
+    scale = want_z.abs().max().item()
+    mask_dir = out / "masks" / "sd" / "demo-fly-tiny"
+    agree = [float(np.mean(_png(mask_dir / ("%05d.png" % i))
+                           == _png(os.path.join(GOLD, "demo_masks", "%05d.png" % i))))
+             for i in range(4)]
+    sty = out / "stylizations" / "sd" / "demo-fly-tiny_tiny-00033"
+    psnrs = []
+    for i in range(4):
+        got = _png(sty / ("%05d.png" % i)).astype(np.float64)
+        want = _png(os.path.join(GOLD, "stylized", "%05d.png" % i)).astype(np.float64)
+        psnrs.append(10 * np.log10(255.0**2 / max(np.mean((got - want) ** 2), 1e-9)))
+    print(f"feature cosine {cos}, latent drift {err} (scale {scale}), mask agreement {agree}, "
+          f"frame PSNR {psnrs}")
+    # the tolerances of tests/test_goldens.py:125-151 and its mask lock (:73-100)
+    assert cos > 0.999, f"feature cosine {cos}"
+    assert err <= 0.05 * scale + 1e-3, f"latent drift {err} (scale {scale})"
+    assert agree[0] == 1.0 and min(agree[1:]) >= 0.995, f"mask agreement {agree}"
+    assert min(psnrs) > 30.0, f"stylized frame PSNR {psnrs}"

@@ -1,0 +1,82 @@
+"""The PyTorch port stands alone: every module of ``univst_torch`` imports
+with JAX and the JAX package blocked, its CLIs answer ``--help``, and no
+source of the port or ``chip_smoke.py`` imports ``jax``, ``flax`` or
+``univst_tpu``."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "univst_torch")
+BLOCKED = ("jax", "jaxlib", "flax", "univst_tpu")
+
+_BLOCK = ("import sys\n"
+          + "".join(f"sys.modules[{m!r}] = None\n" for m in BLOCKED))
+
+
+def _modules():
+    import univst_torch
+
+    return sorted(m.name for m in pkgutil.walk_packages(univst_torch.__path__, "univst_torch."))
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for base, _, files in os.walk(PKG):
+        out += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _run(code, *args):
+    return subprocess.run([sys.executable, "-c", _BLOCK + code, *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "univst_torch.pipelines.sd" in mods and len(mods) > 20
+    code = ("import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            f"assert not any(sys.modules.get(b) for b in {BLOCKED!r})\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("cli", ["run_workflow", "run_content_inversion_sd",
+                                 "run_style_inversion_sd", "mask_propagation",
+                                 "run_video_style_transfer_sd"])
+def test_cli_help_without_jax(cli):
+    res = _run(f"import runpy; sys.argv = ['x', '--help']; "
+               f"runpy.run_module('univst_torch.cli.{cli}', run_name='__main__')")
+    assert res.returncode == 0, res.stderr
+    assert "usage:" in res.stdout
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    offenders = []
+    for path in _sources():
+        tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                if n.split(".")[0] in BLOCKED:
+                    offenders.append(f"{os.path.relpath(path, REPO)}: {n}")
+    assert not offenders, offenders
+
+
+@pytest.mark.parametrize("backbone", ["animatediff", "sd3"])
+def test_unported_backbones_raise_clearly(backbone):
+    from univst_torch.cli import run_workflow
+
+    with pytest.raises(SystemExit, match="not ported"):
+        run_workflow.main(run_workflow.build_parser().parse_args(["--backbone", backbone]))

@@ -1,0 +1,165 @@
+"""Sparse-causal video flash attention: the CUDA kernel's wrapper and its
+plain PyTorch version.
+
+Replaces the Pallas TPU kernel
+``univst_tpu/attention/pallas_attention.py::video_flash_attention``. Each
+target frame attends the concatenation of the K/V of its source frames
+(``resolve_frame_indices``), read unexpanded. What bounds it on the H100 is
+tensor-core arithmetic — 4 * Lq * dh * L FLOPs per kept slot and head,
+about 2 ms at the SD-1.5 64x64 level — not bytes: each block keeps its query
+tile and running softmax on chip and streams the source tiles past it, so
+no expanded K/V and no logits reach device memory. bf16 runs on the tensor
+cores (mma.sync, fp32 accumulation), with dh padded to the MMA depth in
+shared memory only; fp32 keeps exact fp32 arithmetic on the CUDA cores.
+Duplicate slots are skipped and their mass folded into the kept slot's
+multiplicity, which cuts the FLOPs of the first two frames. The kernel is
+``univst_torch/csrc/video_flash_attention.cu``.
+
+On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises. ``video_flash_attention.launches`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from univst_torch.attention.ops import resolve_frame_indices
+
+_KERNEL = "video_flash_attention"
+_fn = None
+
+
+def slot_tables(frame_indices: Sequence, num_frames: int):
+    """``(srcs, mult)``, int32 ``[F, S]``: the source frame of each (target
+    frame, slot), and the slot's multiplicity — the first occurrence of a
+    source keeps the count of its duplicates, later ones get 0 (the JAX
+    package's table, pallas_attention.py:300-310)."""
+    srcs = np.stack(resolve_frame_indices(tuple(frame_indices), num_frames), axis=1)
+    mult = np.zeros_like(srcs)
+    for fi in range(num_frames):
+        for sj in range(srcs.shape[1]):
+            if not (srcs[fi, :sj] == srcs[fi, sj]).any():
+                mult[fi, sj] = int((srcs[fi] == srcs[fi, sj]).sum())
+    return srcs.astype(np.int32), mult.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tables(frame_indices: tuple, num_frames: int, device: torch.device):
+    srcs, mult = slot_tables(frame_indices, num_frames)
+    return (torch.from_numpy(srcs).to(device), torch.from_numpy(mult).to(device))
+
+
+def _check(q, k, v, frame_indices, ctx_k, ctx_v, ctx_valid):
+    if not frame_indices:
+        raise ValueError("video_flash_attention needs a non-empty frame index set")
+    if q.dim() != 5 or k.dim() != 5 or k.shape != v.shape:
+        raise ValueError(f"want q [B,F,H,Lq,dh], k/v [B,F,H,L,dh]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[:3] != k.shape[:3] or q.shape[4] != k.shape[4]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    dh = q.shape[4]
+    if dh > 128 or dh % 8:
+        raise ValueError(f"head_dim must be a multiple of 8 and <= 128, got {dh}")
+    tensors = [q, k, v] + ([ctx_k, ctx_v] if ctx_k is not None else [])
+    if (ctx_k is None) != (ctx_v is None):
+        raise ValueError("ctx_k and ctx_v go together")
+    if ctx_k is not None:
+        if ctx_k.shape != ctx_v.shape or ctx_k.shape[:3] != q.shape[:3] or ctx_k.shape[4] != dh:
+            raise ValueError(f"ctx k/v {tuple(ctx_k.shape)} do not match q {tuple(q.shape)}")
+        if not 1 <= ctx_valid <= ctx_k.shape[3]:
+            raise ValueError(f"ctx_valid={ctx_valid} outside [1, {ctx_k.shape[3]}]")
+    for t in tensors:
+        if t.dtype not in (torch.float32, torch.bfloat16) or t.dtype != q.dtype:
+            raise TypeError(f"want one dtype of float32/bfloat16, got {[x.dtype for x in tensors]}")
+        if t.device != q.device:
+            raise ValueError("all inputs must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+
+
+def video_flash_attention_plain(q, k, v, frame_indices: Sequence, sm_scale: Optional[float] = None,
+                                ctx_k=None, ctx_v=None, ctx_valid: Optional[int] = None):
+    """Plain PyTorch version: gather each target frame's source-frame K/V,
+    concatenate them (duplicates included, plus the valid context), and run
+    an fp32 softmax. One (b, f) row at a time, so the logits stay
+    ``[H, Lq, S*L + Lc]``."""
+    b, f, h, lq, dh = q.shape
+    srcs, _ = slot_tables(frame_indices, f)
+    scale = float(dh**-0.5 if sm_scale is None else sm_scale)
+    out = torch.empty_like(q)
+    for bi in range(b):
+        for fi in range(f):
+            ks = [k[bi, s] for s in srcs[fi]]
+            vs = [v[bi, s] for s in srcs[fi]]
+            if ctx_k is not None:
+                ks.append(ctx_k[bi, fi, :, :ctx_valid])
+                vs.append(ctx_v[bi, fi, :, :ctx_valid])
+            kk = torch.cat(ks, dim=1).float()
+            vv = torch.cat(vs, dim=1).float()
+            p = torch.softmax(torch.matmul(q[bi, fi].float(), kk.transpose(1, 2)) * scale, dim=-1)
+            out[bi, fi] = torch.matmul(p, vv).to(q.dtype)
+    return out
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        from univst_torch._build import load_library
+
+        fn = load_library(_KERNEL).univst_video_flash_attention
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def video_flash_attention(q, k, v, frame_indices: Sequence, sm_scale: Optional[float] = None,
+                          ctx_k=None, ctx_v=None, ctx_valid: Optional[int] = None):
+    """Attention where each frame's KV is the concatenation of the frames
+    selected by ``frame_indices``, computed without expanding K/V.
+
+    Args:
+      q: ``[B, F, H, Lq, dh]`` (Lq may differ from L).
+      k, v: ``[B, F, H, L, dh]``.
+      frame_indices: sparse-causal index set, e.g. ``(-1, 'first')``.
+      ctx_k, ctx_v: optional ``[B, F, H, Lc, dh]`` per-frame context K/V that
+        every query of the frame also attends, limited to the first
+        ``ctx_valid`` (default Lc) tokens.
+    Returns ``[B, F, H, Lq, dh]`` in the input dtype (float32 or bfloat16).
+    """
+    if ctx_k is not None and ctx_valid is None:
+        ctx_valid = ctx_k.shape[3]
+    _check(q, k, v, frame_indices, ctx_k, ctx_v, ctx_valid)
+    if q.device.type == "cpu":
+        return video_flash_attention_plain(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v,
+                                           ctx_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"video_flash_attention runs on CPU or CUDA, not {q.device}")
+    b, f, h, lq, dh = q.shape
+    l = k.shape[3]
+    scale = float(dh**-0.5 if sm_scale is None else sm_scale)
+    fn = _kernel_fn()
+    srcs, mult = _device_tables(tuple(frame_indices), f, q.device)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 ctx_k.data_ptr() if ctx_k is not None else None,
+                 ctx_v.data_ptr() if ctx_v is not None else None,
+                 out.data_ptr(), srcs.data_ptr(), mult.data_ptr(),
+                 b, f, h, lq, l, ctx_k.shape[3] if ctx_k is not None else 0,
+                 ctx_valid or 0, dh, srcs.shape[1], scale,
+                 int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"video_flash_attention kernel launch failed: CUDA error {err}")
+    video_flash_attention.launches += 1
+    return out
+
+
+video_flash_attention.launches = 0

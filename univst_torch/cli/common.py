@@ -1,0 +1,123 @@
+"""Shared CLI plumbing: device selection, dtype parsing, output trees.
+
+Flags and output trees match ``univst_tpu.cli`` (common.py:55,70). The
+device is CUDA unless ``--platform cpu`` asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+
+NOT_PORTED = "is not ported to the PyTorch package yet (it runs in univst_tpu)"
+
+
+def setup_device(platform: Optional[str] = None):
+    """``--platform``: None or 'cuda'/'gpu' -> the GPU (raises without one),
+    'cpu' -> the CPU."""
+    from univst_torch.pipelines.sd import resolve_device
+
+    if platform in (None, "", "cuda", "gpu"):
+        return resolve_device(None)
+    if platform == "cpu":
+        return resolve_device("cpu")
+    raise SystemExit(f"--platform {platform!r}: use 'cpu' or 'cuda'")
+
+
+def parse_dtype(name: str):
+    import torch
+
+    return {
+        "bf16": torch.bfloat16,
+        "bfloat16": torch.bfloat16,
+        "fp16": torch.bfloat16,  # fp16 requests map to bf16, as in univst_tpu
+        "torch.float16": torch.bfloat16,
+        "fp32": torch.float32,
+        "float32": torch.float32,
+    }[str(name)]
+
+
+def make_output_tree(output_path: str, backbone: str, name: str):
+    """{out}/{backbone}/{name}/{inversion,reconstruction,features}
+    (reference run_content_inversion_sd.py:60-66)."""
+    base = os.path.join(output_path, backbone, name)
+    paths = {
+        "base": base,
+        "inversion": os.path.join(base, "inversion"),
+        "reconstruction": os.path.join(base, "reconstruction"),
+        "features": os.path.join(base, "features"),
+    }
+    for p in paths.values():
+        os.makedirs(p, exist_ok=True)
+    return paths
+
+
+def save_feature_pt(feature, features_dir: str, ft_index: int, ft_timestep: int):
+    """Save the captured decoder feature in the reference's format:
+    ``inversion_feature_map_{i}_block_{t}_step.pt`` holding [F, H, W, C] fp16
+    (unet_3d_condition.py:429-436)."""
+    import torch
+
+    path = os.path.join(
+        features_dir, f"inversion_feature_map_{ft_index}_block_{ft_timestep}_step.pt"
+    )
+    torch.save(torch.as_tensor(feature).detach().float().cpu().to(torch.float16).contiguous(),
+               path)
+    print(f"save feature map at: {path}")
+    return path
+
+
+def load_feature_pt(path: str) -> np.ndarray:
+    import torch
+
+    return torch.load(path, weights_only=True, map_location="cpu").float().numpy()
+
+
+def check_backbone(args) -> None:
+    """The port runs the SD backbone on one device; the rest raises."""
+    if getattr(args, "backbone", "sd") not in (None, "sd"):
+        raise SystemExit(f"--backbone {args.backbone} {NOT_PORTED}")
+    if getattr(args, "mesh", None):
+        raise SystemExit(f"--mesh {NOT_PORTED}")
+
+
+def build_pipeline_from_args(args, capture_up_block=None, num_frames=None):
+    """Construct the SD pipeline from the shared CLI flags."""
+    from univst_torch.pipelines.sd import SDVideoPipeline
+
+    check_backbone(args)
+    return SDVideoPipeline.build(
+        pretrained_model_path=args.pretrained_model_path,
+        variant=args.variant,
+        num_frames=args.num_frames if num_frames is None else num_frames,
+        dtype=parse_dtype(args.weight_dtype),
+        capture_up_block=capture_up_block,
+        seed=args.seed or 0,
+        device=setup_device(args.platform),
+    )
+
+
+def add_mesh_flag(parser):
+    parser.add_argument("--mesh", type=str, default=None,
+                        help=f"multi-device mesh; {NOT_PORTED}")
+    return parser
+
+
+def generator_for(device, seed: int):
+    import torch
+
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def require_singleton_style(style_inv_path: str, time_steps: int) -> None:
+    """The port stylizes on the style-singleton path, exact only when every
+    frame of the style trajectory is identical (true for
+    run_style_inversion_sd outputs). The JAX package's fallback for other
+    trajectories belongs to a later slice."""
+    from univst_torch.core.trajectory import style_frames_identical
+
+    if not style_frames_identical(style_inv_path, time_steps):
+        raise SystemExit(f"style trajectory at {style_inv_path} has non-identical frames; "
+                         f"that stylization path {NOT_PORTED}")

@@ -1,0 +1,86 @@
+"""AdaIN-guided localized style transfer loop — port of the DDIM half of
+``univst_tpu/methods/style_transfer.py``.
+
+Rebuild of ``video_style_transfer`` (backbones/video_diffusion_sd/pipelines/
+stable_diffusion.py:630-766): the content and style trajectories are stacked
+tensors indexed per step, and the mask is resized once up front.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from univst_torch.core.adain import latent_adain
+from univst_torch.core.config import StyleTransferConfig
+from univst_torch.core.scheduler import DDIMSchedule
+
+
+def _resize_mask(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[F, H, W] {0,1} mask -> [F, h, w, 1] bilinear (half-pixel centers,
+    antialiased when shrinking, as jax.image.resize does; the reference uses
+    F.interpolate(..., mode='bilinear'), stable_diffusion.py:689-691)."""
+    m = F.interpolate(mask.float()[:, None], size=(h, w), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return m[:, 0, :, :, None]
+
+
+def _le(a, b) -> bool:
+    """``a <= b`` in float32, as the JAX loop compares step indices."""
+    return bool(np.float32(a) <= np.float32(b))
+
+
+def style_transfer_ddim_steps(
+    denoise3: Callable,
+    content_chunk,
+    style_chunk,
+    latents,
+    steps,
+    ts,
+    schedule: DDIMSchedule,
+    cfg: StyleTransferConfig,
+    mask=None,
+    style_kv=None,
+    solo: bool = False,
+):
+    """Run a contiguous segment of the stylization loop (steps/ts of length K,
+    trajectory chunks ``[K, F|1, h, w, C]``).
+
+    Denoiser layouts:
+      * ``style_kv=None``: 3-branch — ``denoise3([3F], t, i)``;
+      * ``style_kv`` given (tuple over PnP slots of (k, v), each ``[K, L, D]``):
+        2-branch — ``denoise3([2F], t, i, kv_t)`` with the style branch's
+        per-step PnP K/V injected (each ``[1, L, D]``); ``style_chunk`` is
+        ``[K, 1, h, w, C]`` and still feeds the latent AdaIN re-anchor;
+      * ``solo=True``: stylized-only — ``denoise3([F], t, i)`` — for steps past
+        the shift window, where the content/style forwards are dead compute.
+    """
+    n = cfg.num_steps
+    f, h, w, _ = latents.shape
+    m = None if mask is None else _resize_mask(mask, h, w).to(latents.dtype)
+    for j, (i, t) in enumerate(zip(steps, ts)):
+        i, t = int(i), int(t)
+        cnt_t = content_chunk[j].to(latents.dtype)
+        sty_t = style_chunk[j].to(latents.dtype)
+        # localized latent blending, i <= 0.9 N (stable_diffusion.py:687-692)
+        if m is not None and _le(i, cfg.blend_hi * n):
+            latents = (1.0 - m) * latents + m * cnt_t
+        # AdaIN re-anchor, 0.8 N < i <= 0.9 N (stable_diffusion.py:694-702)
+        if not _le(i, cfg.adain_lo * n) and _le(i, cfg.adain_hi * n):
+            anchored = latent_adain(latents, sty_t)
+            if m is not None:
+                anchored = (1.0 - m) * anchored + m * cnt_t
+            latents = anchored.to(latents.dtype)
+
+        if solo:
+            eps = denoise3(latents, t, i)
+        elif style_kv is None:
+            eps = denoise3(torch.cat([cnt_t, sty_t, latents]), t, i)[2 * f:]
+        else:
+            kv_t = tuple((k[j:j + 1], v[j:j + 1]) for k, v in style_kv)
+            eps = denoise3(torch.cat([cnt_t, latents]), t, i, kv_t)[f:]
+        latents = schedule.step(eps, t, latents, n)
+    return latents

@@ -1,0 +1,320 @@
+"""SD-1.5 / SD-2.1 video pipeline — port of ``univst_tpu/pipelines/sd.py``
+(rebuild of SpatioTemporalStableDiffusionPipeline,
+backbones/video_diffusion_sd/pipelines/stable_diffusion.py:45-876).
+
+The pipeline owns the modules and runs each stage as one Python loop over
+the method functions in ``univst_torch.methods``. Weights come from a
+diffusers-layout checkpoint directory (strict load), or from a seeded random
+init with the same architecture (throughput runs and tests).
+
+Tensors keep the JAX package's layouts: frames ``[F, H, W, 3]``, latents
+``[F, h, w, 4]``, trajectories ``[N+1, F, h, w, 4]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from univst_torch.core.config import (
+    SD_BASE_FRAME_INDICES,
+    SD_PNP_FRAME_INDICES,
+    SD_STYLE_SHIFT,
+    StyleShiftConfig,
+    StyleTransferConfig,
+)
+from univst_torch.core.scheduler import DDIMConfig, DDIMSchedule, EasyInvConfig
+from univst_torch.methods import inversion as inv
+from univst_torch.methods.style_transfer import style_transfer_ddim_steps
+from univst_torch.models.clip_text import CLIPTextConfig, CLIPTextModel, Tokenizer
+from univst_torch.models.convert import load_pretrained
+from univst_torch.models.layers import StyleCtx, VideoCtx
+from univst_torch.models.unet_sd import UNetPseudo3D, UNetSDConfig, extract_pnp_kv
+from univst_torch.models.vae import AutoencoderKL, VAEConfig, sample_latent
+from univst_torch.pipelines.segments import phase_segments
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device to run on: CUDA unless the caller asks for the CPU. With
+    no GPU and no explicit request this raises rather than fall back."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device found; pass device='cpu' (or --platform cpu) "
+                               "to run on the CPU")
+        return torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    return device
+
+
+def set_precision() -> None:
+    """Full-precision fp32 matmuls and convolutions (no TF32) wherever the
+    working type is fp32; bf16 is the default working type on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@torch.no_grad()
+def random_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights in the JAX package's init families: lecun-normal
+    matrices and kernels, zero biases, unit norm scales, 0.5 blend factors."""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "mix_factor":
+            p.fill_(0.5)
+        elif p.dim() >= 2:
+            fan_in = p[0].numel() if not name.endswith("embedding.weight") else p.shape[1]
+            p.copy_(torch.randn(p.shape, generator=generator, device=p.device)
+                    / math.sqrt(fan_in))
+        elif leaf == "weight":
+            p.fill_(1.0)
+        else:
+            p.zero_()
+
+
+@dataclasses.dataclass
+class SDVideoPipeline:
+    unet: UNetPseudo3D
+    vae: AutoencoderKL
+    text_encoder: CLIPTextModel
+    tokenizer: Tokenizer
+    schedule: DDIMSchedule
+    num_frames: int
+    device: torch.device
+    dtype: torch.dtype = torch.bfloat16
+    style_shift_cfg: StyleShiftConfig = SD_STYLE_SHIFT
+    base_frame_indices: tuple = SD_BASE_FRAME_INDICES
+    pnp_frame_indices: tuple = SD_PNP_FRAME_INDICES
+
+    # -- construction --------------------------------------------------------
+
+    @classmethod
+    def build(
+        cls,
+        pretrained_model_path: Optional[str] = None,
+        variant: str = "sd15",
+        num_frames: int = 16,
+        dtype: torch.dtype = torch.bfloat16,
+        capture_up_block: Optional[int] = None,
+        seed: int = 0,
+        device=None,
+    ) -> "SDVideoPipeline":
+        """Build the modules on ``device`` (CUDA unless the CPU is asked for)
+        and load a checkpoint directory strictly when one is given; else
+        random weights from a generator seeded with ``seed``. The UNet is
+        paired with the SVD temporal-decoder VAE, as the reference does
+        (run_content_inversion_sd.py:41-43). The modules take any size."""
+        device = resolve_device(device)
+        set_precision()
+        unet_cfg = {"sd15": UNetSDConfig.sd15, "sd21": UNetSDConfig.sd21,
+                    "tiny": UNetSDConfig.tiny}[variant](capture_up_block=capture_up_block)
+        vae_cfg = (VAEConfig.svd() if variant in ("sd15", "sd21")
+                   else VAEConfig.tiny(temporal_decoder=True))
+        clip_cfg = {"sd15": CLIPTextConfig.sd15, "sd21": CLIPTextConfig.sd21,
+                    "tiny": CLIPTextConfig.tiny}[variant]()
+
+        with torch.device(device):
+            unet, vae, text = UNetPseudo3D(unet_cfg), AutoencoderKL(vae_cfg), CLIPTextModel(clip_cfg)
+        if pretrained_model_path:
+            load_pretrained(pretrained_model_path, unet, vae, text)
+        else:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            for m in (unet, vae, text):
+                random_init_(m, gen)
+        for m in (unet, vae, text):
+            m.to(dtype).eval().requires_grad_(False)
+
+        tok_dir = None
+        if pretrained_model_path:
+            cand = os.path.join(pretrained_model_path, "tokenizer")
+            tok_dir = cand if os.path.isdir(cand) else None
+        return cls(unet=unet, vae=vae, text_encoder=text, tokenizer=Tokenizer(tok_dir),
+                   schedule=DDIMSchedule(DDIMConfig()), num_frames=num_frames,
+                   device=device, dtype=dtype)
+
+    def with_frames(self, num_frames: int) -> "SDVideoPipeline":
+        """The same modules driven at another frame count (the single-frame
+        style inversion shares the content pipeline's weights)."""
+        return dataclasses.replace(self, num_frames=num_frames)
+
+    # -- stages ---------------------------------------------------------------
+
+    @torch.inference_mode()
+    def encode_text(self, prompt: str):
+        ids = torch.as_tensor(self.tokenizer(prompt), dtype=torch.long, device=self.device)
+        return self.text_encoder(ids)[0]  # [1, 77, D]
+
+    @torch.inference_mode()
+    def encode_frames(self, frames, generator: Optional[torch.Generator] = None, noise=None):
+        """[F, H, W, 3] in [-1, 1] -> sampled latents [F, h, w, 4] * scaling
+        (fp32). ``noise`` overrides the posterior draw from ``generator``."""
+        x = torch.as_tensor(np.asarray(frames), device=self.device)
+        mean, logvar = self.vae.encode(x.to(self.dtype))
+        z = sample_latent(mean.float(), logvar.float(), generator, noise)
+        return z * self.vae.cfg.scaling_factor
+
+    @torch.inference_mode()
+    def _decode(self, latents, num_frames: int):
+        z = (latents.to(self.device).float() / self.vae.cfg.scaling_factor).to(self.dtype)
+        px = self.vae.decode(z, num_frames)
+        return torch.clamp(px.float() / 2.0 + 0.5, 0.0, 1.0)
+
+    def decode_latents(self, latents):
+        """latents [F, h, w, 4] -> frames [F, H, W, 3] in [0, 1] (reference
+        decode_latents, stable_diffusion.py:369-394)."""
+        return self._decode(latents, self.num_frames)
+
+    def decode_latents_uint8(self, latents):
+        return torch.round(self.decode_latents(latents) * 255.0).to(torch.uint8)
+
+    def decode_latents_uint8_chunks(self, latents, chunk: int) -> List[torch.Tensor]:
+        """Chunked temporal-VAE decode (the reference's ``decode_chunk_size``,
+        stable_diffusion.py:369-385): each chunk's temporal decoder sees its
+        own frame count. Returns one uint8 tensor per chunk."""
+        n = latents.shape[0]
+        if chunk >= n:
+            return [self.decode_latents_uint8(latents)]
+        if n % chunk:
+            raise ValueError(f"chunk {chunk} must divide the frame count {n}")
+        return [torch.round(self._decode(latents[s:s + chunk], chunk) * 255.0).to(torch.uint8)
+                for s in range(0, n, chunk)]
+
+    # -- denoiser closures ----------------------------------------------------
+
+    def _denoise_fn(self, context, frame_indices, style_cfg: Optional[StyleShiftConfig],
+                    pnp_plain: bool = False, num_frames: Optional[int] = None):
+        """``pnp_plain=True`` is the stylized-only denoiser past the shift
+        window: the 8 patched layers keep their PnP index set (the window only
+        gates the AdaIN shift, pnp_utils.py:25,47) but nothing is shifted."""
+        f = self.num_frames if num_frames is None else num_frames
+        if style_cfg is None and not pnp_plain:
+            # inversion / reconstruction: unpatched model, default indices
+            vctx = VideoCtx(num_frames=f, frame_indices=tuple(frame_indices))
+        else:
+            vctx = VideoCtx(num_frames=f, frame_indices=self.base_frame_indices,
+                            pnp_frame_indices=tuple(frame_indices))
+
+        def denoise(latents, t, step_idx, style_kv=None):
+            if style_cfg is not None:
+                sctx = StyleCtx(step_idx=step_idx, cfg=style_cfg, style_kv=style_kv)
+            elif pnp_plain:
+                sctx = StyleCtx(step_idx=step_idx)
+            else:
+                sctx = None
+            eps, feat = self.unet(latents.to(self.dtype), t, context, vctx, sctx)
+            return eps.float(), feat
+
+        return denoise
+
+    # -- workflows --------------------------------------------------------------
+
+    @torch.inference_mode()
+    def invert(self, latents, context, num_steps: int = 50, is_opt: bool = True,
+               capture_timestep: Optional[int] = None):
+        """Content/style inversion -> (trajectory [N+1, ...], captured feature)
+        (reference ddim_inversion, inversion_tools/ddim_inversion.py:71-84)."""
+        ts = self.schedule.timesteps(num_steps)[::-1]
+        latents = latents.to(self.device).float()
+        denoise = self._denoise_fn(context, self.base_frame_indices, None)
+        if self.unet.cfg.capture_up_block is None:
+            capture_timestep = None
+        (_, _, captured), traj = inv.ddim_invert_segment(
+            denoise, (latents, latents, None), range(num_steps), ts, self.schedule,
+            num_steps, easyinv=EasyInvConfig() if is_opt else None,
+            capture_timestep=capture_timestep)
+        return torch.cat([latents[None], traj]), captured
+
+    @torch.inference_mode()
+    def reconstruct_latents(self, latents_T, context, num_steps: int = 50):
+        """xT -> x0 reconstruction. The reference runs the [uncond | cond]
+        batch (stable_diffusion.py:560-614) at guidance 1.0, where guidance is
+        the identity, so one batch runs here."""
+        ts = self.schedule.timesteps(num_steps)
+        latent = latents_T.to(self.device).float()
+        denoise = self._denoise_fn(context, self.base_frame_indices, None)
+        return inv.ddim_sample_segment(denoise, latent, range(num_steps), ts, self.schedule,
+                                       num_steps)
+
+    @torch.inference_mode()
+    def stylize_latents(self, content_traj_rev, style_traj_rev, init_latents, context3,
+                        mask=None, cfg: StyleTransferConfig = StyleTransferConfig(),
+                        style_cfg: Optional[StyleShiftConfig] = None):
+        """Stylization (reference video_style_transfer,
+        stable_diffusion.py:630-766) on the style-singleton path.
+
+        Style-trajectory frames are identical (a repeated style image), so the
+        style branch runs once as a single frame: a batched pre-pass computes
+        its PnP K/V for every multi-branch step, phase 1 runs the 2-branch
+        [content | stylized] batch with that K/V injected, and phase 2 — past
+        the shift window, where the other branches are dead compute — the
+        stylized branch alone.
+        """
+        scfg = style_cfg if style_cfg is not None else self.style_shift_cfg
+        n = cfg.num_steps
+        ts = self.schedule.timesteps(n)
+        dev = self.device
+        content_traj_rev = content_traj_rev.to(dev)
+        style_traj_rev = style_traj_rev[:, :1].to(dev)
+        mask = None if mask is None else torch.as_tensor(mask, device=dev)
+        context3 = context3.to(dev)
+
+        phase1, phase2 = phase_segments(n, scfg.window_end())
+        k1 = phase2[0][0] if phase2 else n
+        latents = init_latents.to(dev).float()
+        if phase1:
+            style_kv_all = self._style_prepass(style_traj_rev, ts[:k1], context3, k1)
+            for s0, c in phase1:
+                latents = self._stylize_chunk_singleton(content_traj_rev, style_traj_rev,
+                                                        style_kv_all, latents, ts, s0, context3,
+                                                        mask, cfg, scfg, c)
+        for s0, c in phase2:
+            latents = self._stylize_chunk_solo(content_traj_rev, style_traj_rev, latents, ts,
+                                               s0, context3, mask, cfg, c)
+        return latents
+
+    def _style_prepass(self, style_traj_rev, ts, context3, k1: int):
+        """The style branch's projected PnP K/V for all k1 steps in one
+        batched single-frame call: a tuple over PNP_SLOT_ORDER of (k, v),
+        each ``[k1, L, D]``."""
+        sctx = StyleCtx(step_idx=0, cfg=self.style_shift_cfg, capture=True)
+        ctx = context3[1:2].expand(k1, -1, -1)
+        self.unet(style_traj_rev[:k1, 0].to(self.dtype),
+                  torch.as_tensor(np.ascontiguousarray(ts), device=self.device), ctx,
+                  VideoCtx(num_frames=1, frame_indices=()), sctx)
+        return extract_pnp_kv(sctx.captured)
+
+    def _stylize_chunk_singleton(self, content, style, style_kv_all, latents, ts, s0,
+                                 context3, mask, cfg, style_cfg, chunk):
+        """Phase-1 segment: the 2-branch [content | stylized] batch."""
+        denoise = self._denoise_fn(torch.cat([context3[:1], context3[2:3]]),
+                                   self.pnp_frame_indices, style_cfg)
+
+        def denoise2(x2, t, i, kv):
+            return denoise(x2, t, i, style_kv=kv)[0]
+
+        sl = slice(s0, s0 + chunk)
+        return style_transfer_ddim_steps(
+            denoise2, content[sl], style[sl], latents, range(s0, s0 + chunk), ts[sl],
+            self.schedule, cfg, mask=mask,
+            style_kv=tuple((k[sl], v[sl]) for k, v in style_kv_all))
+
+    def _stylize_chunk_solo(self, content, style, latents, ts, s0, context3, mask, cfg, chunk):
+        """Phase-2 segment: the stylized branch alone (the shift gate is off,
+        so the patched attention uses its own q/k/v, and the reference keeps
+        only the stylized epsilon, stable_diffusion.py:712)."""
+        denoise = self._denoise_fn(context3[2:3], self.pnp_frame_indices, None, pnp_plain=True)
+
+        def denoise1(x, t, i):
+            return denoise(x, t, i)[0]
+
+        sl = slice(s0, s0 + chunk)
+        return style_transfer_ddim_steps(
+            denoise1, content[sl], style[sl], latents, range(s0, s0 + chunk), ts[sl],
+            self.schedule, cfg, mask=mask, solo=True)
