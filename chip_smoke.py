@@ -1,35 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SD-1.5 workflow on one NVIDIA GPU.
+"""Drive the PyTorch port's SD-1.5 and SD3 workflows on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps N]
+    python3 chip_smoke.py [--steps N] [--sd3_steps N]
 
 Run from the root of a checkout, on a machine with a CUDA card. Phases, each
 ending in ``torch.cuda.synchronize()`` so a fault surfaces where it happens;
 none catches its own failure:
 
 1. Device: the card's name and power limit (nvidia-smi), torch/CUDA versions.
-2. Build: compiles the kernel of ``univst_torch/csrc`` with nvcc (sm_90a).
+2. Build: compiles every kernel source of ``univst_torch/csrc`` with nvcc
+   (sm_90a), one nvcc per source, all started together.
 3. Kernels against their plain PyTorch versions, in bf16 at the shapes the
-   main path gives them (and a small fp32 context / Lq != L case): the
-   error against a tolerance that follows the output's scale
-   (``_err_over_tol``), a planted fault that the same check must reject,
-   kernel / plain / library times (CUDA events) and the card's least time
-   for the work (bound).
-4. Main path: ``SDVideoPipeline`` (SD-1.5 widths, 512 px, 16 frames, bf16,
-   seeded random weights) through content inversion with feature capture,
-   single-frame style inversion, mask propagation, stylization (style
-   pre-pass, injected 2-branch phase, stylized-only phase) and the chunked
-   temporal-VAE decode, plus the inversion -> reconstruction round trip.
-   The kernel launch counters are zeroed just before and read just after;
-   every kernel must have run, the video flash attention 10 times per
-   16-frame UNet forward.
+   main paths give them (and a small fp32 context / ragged Lq case each):
+   the error against a tolerance that follows the output's scale
+   (``_err_over_tol``), a planted fault per kernel that the same check must
+   reject, kernel / plain / library times (CUDA events) and the card's
+   least time for the work (bound). K1 is the head-major video flash
+   attention of the SD UNet, K2 the token-major one of the SD3 MMDiT.
+4. SD-1.5 path: ``SDVideoPipeline`` (SD-1.5 widths, 512 px, 16 frames,
+   bf16, seeded random weights) through content inversion with feature
+   capture, single-frame style inversion, mask propagation, stylization
+   (style pre-pass, injected 2-branch phase, stylized-only phase) and the
+   chunked temporal-VAE decode, plus the inversion -> reconstruction round
+   trip. K1 must launch 10 times per 16-frame UNet forward, K2 never.
+5. SD3 path: ``SD3VideoPipeline`` at SD3-medium widths (24 blocks, 24 heads
+   of 64, T5-XXL, CLIP-L and CLIP-G; bf16, seeded random weights), 1024 px,
+   16 frames: prompt encoding (then the text encoders are freed), VAE
+   encode, RF-Solver content inversion with the block-20 feature captured
+   at step 5, single-frame style inversion, mask propagation on that
+   feature, stylization (style-singleton 2-branch phase, then the
+   stylized-only phase), decode and the controlled-velocity
+   reconstruction. K2 must launch 24 x (2 + 1 + 1) = 96 times per step
+   (inversion's two forwards, the reconstruction, one stylization forward;
+   single-frame forwards run no video attention), K1 never.
 
+Each path's launch counters are zeroed just before it and read just after.
 The last line is ``{"ok": true, "device": {...}}``; the lines before it hold
 the per-kernel JSON and the card's name and power limit. Any failed check
-exits non-zero. ``--steps`` defaults to 30, which keeps the run well inside
-its time limit and still runs both stylization phases (the reference's
-shift window closes after step 25 of its 50-step constants); 50 is the full
-workload.
+exits non-zero. ``--steps`` (SD-1.5) defaults to 30 and ``--sd3_steps`` to
+32: the fewest that run both stylization phases (the shift windows of the
+50-step constants close after step 25 / 30); 50 is the full workload.
 """
 
 from __future__ import annotations
@@ -46,6 +56,8 @@ PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12    # H100 SXM fp32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 TPU_KERNEL = "univst_tpu/attention/pallas_attention.py:193"
+TPU_KERNEL_FOLDED = "univst_tpu/attention/pallas_attention.py:546"
+SOURCE = "univst_torch/csrc/video_flash_attention.cu"
 
 
 def _sync():
@@ -87,11 +99,16 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from univst_torch import _build
 
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.time()
-    path = _build.build("video_flash_attention")
-    print(f"[build] {os.path.relpath(path, REPO)} in {time.time() - t0:.2f}s", flush=True)
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = list(pool.map(_build.build, names))
+    for path in paths:
+        print(f"[build] {os.path.relpath(path, REPO)} in {time.time() - t0:.2f}s", flush=True)
 
 
 def _err_over_tol(got, want) -> float:
@@ -182,13 +199,91 @@ def _vfa_case(b, f, h, l, dh, idx, dtype, lq=None, lc=None, ctx_valid=None, reps
     # q read, out written, k/v read once; the kernel reads ctx_valid rows of ctx
     nbytes = elt * (2 * q.numel() + k.numel() + v.numel()
                     + (2 * b * f * h * ctx_valid * dh if lc else 0))
-    t_ops = flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32) * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bound_ms, bound_by = _bound(flops, nbytes, dtype)
     case = dict(shape=[b, f, h, lq, l, dh], indices=list(idx), dtype=str(dtype).split(".")[-1],
                 ctx=[lc, ctx_valid] if lc else None, max_abs_err=err, err_over_tol=ratio,
                 planted_err_over_tol=planted, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+                bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[kernel] {json.dumps(case)}", flush=True)
+    return case
+
+
+def _bound(flops: float, nbytes: float, dtype):
+    import torch
+
+    t_ops = flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _vfa_tokens_case(b, f, h, lq, l, dh, idx, dtype, lc=None, reps=3, plant=False):
+    """K2 against its plain version (and SDPA on the expanded
+    ``[img*slots | ctx]`` K/V) on one token-major shape. The context, when
+    given, is ``lc`` rows, all valid (the SD3 merged q stream). With
+    ``plant``, also run the kernel on k/v rolled by one head along the head
+    axis (what an off-by-one head offset would read) and require the same
+    check to reject it."""
+    import torch
+    import torch.nn.functional as F
+
+    from univst_torch.attention.ops import cross_frame_kv_heads
+    from univst_torch.attention.video_flash import (
+        slot_tables, video_flash_attention_tokens, video_flash_attention_tokens_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(lq * dh + len(idx))
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = r(b, f, lq, h, dh), r(b, f, l, h, dh), r(b, f, l, h, dh)
+    kw = dict(ctx_k=r(b, f, lc, h, dh), ctx_v=r(b, f, lc, h, dh), ctx_valid=lc) if lc else {}
+    got = video_flash_attention_tokens(q, k, v, idx, **kw)
+    _sync()
+    want = video_flash_attention_tokens_plain(q, k, v, idx, **kw)
+    _sync()
+    err = (got.float() - want.float()).abs().max().item()
+    ratio = _err_over_tol(got, want)
+    if not ratio <= 1.0:
+        raise AssertionError(f"video_flash_attention_tokens {tuple(q.shape)} {idx} {dtype}: "
+                             f"kernel vs plain at {ratio:.3g}x the tolerance (max abs err {err})")
+    planted = None
+    if plant:
+        wrong = video_flash_attention_tokens(q, torch.roll(k, 1, dims=3),
+                                             torch.roll(v, 1, dims=3), idx, **kw)
+        planted = _err_over_tol(wrong, want)
+        if not planted > 1.0:
+            raise AssertionError(f"the check passed a kernel fed k/v rolled by one head "
+                                 f"({planted:.3g}x the tolerance)")
+        print(f"[kernel] planted fault (k/v one head off) rejected at {planted:.3g}x the "
+              f"tolerance", flush=True)
+        del wrong
+    del want
+    ms = _time_ms(lambda: video_flash_attention_tokens(q, k, v, idx, **kw), reps)
+    plain_ms = _time_ms(lambda: video_flash_attention_tokens_plain(q, k, v, idx, **kw), 1)
+
+    # yardstick: PyTorch's fused attention on the expanded [img*slots | ctx] K/V
+    def heads(x):
+        return x.reshape(b * f, x.shape[2], h, dh).transpose(1, 2).contiguous()
+
+    qh = heads(q)
+    ke, ve = (cross_frame_kv_heads(heads(x), f, idx) for x in (k, v))
+    if lc:
+        ke = torch.cat([ke, heads(kw["ctx_k"])], dim=2)
+        ve = torch.cat([ve, heads(kw["ctx_v"])], dim=2)
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qh, ke, ve), reps)
+    del qh, ke, ve
+    _, mult = slot_tables(idx, f)
+    kept = int((mult > 0).sum())  # distinct source frames, summed over targets
+    flops = 4.0 * b * h * lq * dh * (l * kept + (lc or 0) * f)
+    # q read, out written, k/v and the valid ctx rows read once
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel()
+                                 + (2 * b * f * lc * h * dh if lc else 0))
+    bound_ms, bound_by = _bound(flops, nbytes, dtype)
+    case = dict(shape=[b, f, h, lq, l, dh], indices=list(idx), dtype=str(dtype).split(".")[-1],
+                ctx=[lc, lc] if lc else None, max_abs_err=err, err_over_tol=ratio,
+                planted_err_over_tol=planted, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
     print(f"[kernel] {json.dumps(case)}", flush=True)
     return case
 
@@ -208,7 +303,79 @@ def phase_kernels():
                   ctx_valid=77),
     ]
     _sync()
-    return cases
+    idx = ("first", -1, 0)
+    # SD3-medium at 1024 px: 4096 image tokens, 333 context rows (77 + 77 + 256)
+    tokens = [
+        _vfa_tokens_case(2, 16, 24, 4429, 4096, 64, idx, bf, lc=333, plant=True),  # 2-branch
+        _vfa_tokens_case(1, 16, 24, 4429, 4096, 64, idx, bf, lc=333),  # inversion, solo phase
+        _vfa_tokens_case(2, 16, 24, 4096, 4096, 64, idx, bf),  # SD3.5-M dual attention
+        _vfa_tokens_case(1, 4, 3, 300, 256, 64, idx, torch.float32, lc=77),  # ragged Lq, fp32
+    ]
+    _sync()
+    return cases, tokens
+
+
+def _zero_counters():
+    from univst_torch.attention.video_flash import (
+        video_flash_attention, video_flash_attention_tokens,
+    )
+
+    counters = {"video_flash_attention": video_flash_attention,
+                "video_flash_attention_tokens": video_flash_attention_tokens}
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def _propagate(feat, mask0, device):
+    """Mask propagation on a captured ``[F, h, w, C]`` feature; returns
+    ``[F, H, W]`` uint8 {0, 255} masks, frame 0 the input mask."""
+    import numpy as np
+    import torch
+
+    from univst_torch.methods.mask_propagation import (
+        propagate_masks, to_one_hot, upsample_and_binarize,
+    )
+
+    nf, fh, fw = feat.shape[:3]
+    small = torch.nn.functional.interpolate(
+        torch.tensor(mask0, device=device)[None, None].float(), size=(fh, fw),
+        mode="nearest")[0, 0]
+    seg0 = to_one_hot((small > 0).long(), 2)
+    segs = propagate_masks(feat.float().reshape(nf, fh * fw, -1), seg0,
+                           generator=torch.Generator(device=device).manual_seed(0))
+    rest = upsample_and_binarize(segs, (fh, fw), mask0.shape[:2])
+    first = torch.as_tensor(np.where(mask0 > 0, 255, 0).astype(np.uint8), device=device)
+    return torch.cat([first[None], rest])
+
+
+def _check_outputs(tensors, masks, video, nf, px, z0, rec):
+    """Finite tensors, {0, 255} masks, non-constant uint8 frames of the
+    expected shape; returns the reconstruction latent PSNR (finite)."""
+    import numpy as np
+    import torch
+
+    for name, x in tensors.items():
+        if not torch.isfinite(x.float()).all():
+            raise AssertionError(f"{name} has non-finite values")
+    vals = set(torch.unique(masks).tolist())
+    if not vals <= {0, 255}:
+        raise AssertionError(f"masks hold values {sorted(vals)}, want {{0, 255}}")
+    if tuple(video.shape) != (nf, px, px, 3) or video.dtype != torch.uint8:
+        raise AssertionError(f"frames {tuple(video.shape)} {video.dtype}")
+    if not video.float().std().item() > 0:
+        raise AssertionError("stylized frames are constant")
+    z0 = z0.double()
+    mse = ((rec.double() - z0) ** 2).mean().item()
+    psnr = 10 * np.log10((z0.max() - z0.min()).item() ** 2 / mse) if mse > 0 else float("inf")
+    if not np.isfinite(psnr):
+        raise AssertionError(f"reconstruction latent PSNR {psnr}")
+    return psnr
+
+
+def _check_launches(launches, want):
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, want {want}")
 
 
 def _load_inputs(num_frames: int, px: int):
@@ -229,15 +396,10 @@ def _load_inputs(num_frames: int, px: int):
 
 def phase_main_path(steps: int):
     """SD-1.5 at 512 px, 16 frames, bf16, on the card."""
-    import numpy as np
     import torch
 
-    from univst_torch.attention.video_flash import video_flash_attention
     from univst_torch.core.adain import latent_adain
     from univst_torch.core.config import StyleTransferConfig
-    from univst_torch.methods.mask_propagation import (
-        propagate_masks, to_one_hot, upsample_and_binarize,
-    )
     from univst_torch.pipelines.sd import SDVideoPipeline
 
     nf, px, device = 16, 512, "cuda"
@@ -260,9 +422,7 @@ def phase_main_path(steps: int):
         print(f"[main] {name}: {stage[name]:.2f}s", flush=True)
         return out
 
-    counters = {"video_flash_attention": video_flash_attention}
-    for fn in counters.values():
-        fn.launches = 0
+    counters = _zero_counters()
     t_main = time.time()
     latents, ctx = run("encode", lambda: (pipe.encode_frames(frames, gen), pipe.encode_text("")))
     traj, feat = run("content_inversion", lambda: pipe.invert(
@@ -276,19 +436,7 @@ def phase_main_path(steps: int):
 
     straj = run("style_inversion", style_inversion)
 
-    def mask_propagation():
-        fh, fw = feat.shape[1:3]
-        small = torch.nn.functional.interpolate(
-            torch.tensor(mask0, device=device)[None, None].float(), size=(fh, fw),
-            mode="nearest")[0, 0]
-        seg0 = to_one_hot((small > 0).long(), 2)
-        segs = propagate_masks(feat.float().reshape(nf, fh * fw, -1), seg0,
-                               generator=torch.Generator(device=device).manual_seed(0))
-        rest = upsample_and_binarize(segs, (fh, fw), mask0.shape[:2])
-        first = torch.as_tensor(np.where(mask0 > 0, 255, 0).astype(np.uint8), device=device)
-        return torch.cat([first[None], rest])
-
-    masks = run("mask_propagation", mask_propagation)
+    masks = run("mask_propagation", lambda: _propagate(feat, mask0, device))
 
     def stylize():
         content_rev = torch.flip(traj, dims=[0])
@@ -304,30 +452,15 @@ def phase_main_path(steps: int):
     main_s = time.time() - t_main
     launches = {name: fn.launches for name, fn in counters.items()}
 
-    # checks
-    for name, x in (("trajectory", traj), ("feature", feat), ("style trajectory", straj),
-                    ("stylized latents", out), ("reconstruction", rec)):
-        if not torch.isfinite(x.float()).all():
-            raise AssertionError(f"{name} has non-finite values")
-    vals = set(torch.unique(masks).tolist())
-    if not vals <= {0, 255}:
-        raise AssertionError(f"masks hold values {sorted(vals)}, want {{0, 255}}")
     video = torch.cat(chunks)
-    if tuple(video.shape) != (nf, px, px, 3) or video.dtype != torch.uint8:
-        raise AssertionError(f"frames {tuple(video.shape)} {video.dtype}")
-    if not video.float().std().item() > 0:
-        raise AssertionError("stylized frames are constant")
-    z0 = traj[0].double()
-    mse = ((rec.double() - z0) ** 2).mean().item()
-    psnr = 10 * np.log10((z0.max() - z0.min()).item() ** 2 / mse) if mse > 0 else float("inf")
-    if not np.isfinite(psnr):
-        raise AssertionError(f"reconstruction latent PSNR {psnr}")
+    psnr = _check_outputs({"trajectory": traj, "feature": feat, "style trajectory": straj,
+                           "stylized latents": out, "reconstruction": rec},
+                          masks, video, nf, px, traj[0], rec)
     # one 16-frame UNet forward per step of the content inversion, the
     # reconstruction and the stylization (the style branch runs single-frame),
     # each with the sparse-causal attentions at L >= 1024: 5 at 64x64, 5 at 32x32
-    want = 10 * 3 * steps
-    if launches["video_flash_attention"] != want:
-        raise AssertionError(f"video_flash_attention launched {launches} times, want {want}")
+    _check_launches(launches, {"video_flash_attention": 10 * 3 * steps,
+                               "video_flash_attention_tokens": 0})
     summary = dict(steps=steps, frames=nf, size=px, stage_s=stage, main_path_s=main_s,
                    workflow_frames_per_s=nf / main_s,
                    stylize_frames_per_s=nf / (stage["stylize"] + stage["decode"]),
@@ -338,9 +471,101 @@ def phase_main_path(steps: int):
     return launches
 
 
+def phase_sd3(steps: int, px: int = 1024):
+    """SD3-medium widths, ``px`` px, 16 frames, bf16, on the card."""
+    import torch
+
+    from univst_torch.core.adain import latent_adain_sd3
+    from univst_torch.core.config import StyleTransferConfig
+    from univst_torch.pipelines.sd3 import SD3VideoPipeline
+
+    nf, device, block, cap_step = 16, "cuda", 20, 5
+    frames, style, mask0 = _load_inputs(nf, px)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pipe = SD3VideoPipeline.build(variant="sd3", num_frames=nf, dtype=torch.bfloat16,
+                                  capture_block=block, seed=0, device=device)
+    _sync()
+    print(f"[sd3] built sd3-medium + T5-XXL + CLIP-L/G (random weights, seed 0) in "
+          f"{time.time() - t0:.1f}s", flush=True)
+    gen = torch.Generator(device=device).manual_seed(0)
+    stage = {}
+
+    def run(name, fn):
+        t = time.time()
+        out = fn()
+        _sync()
+        stage[name] = time.time() - t
+        print(f"[sd3] {name}: {stage[name]:.2f}s", flush=True)
+        return out
+
+    counters = _zero_counters()
+    t_main = time.time()
+
+    def encode_prompt():
+        out = pipe.encode_prompt("")
+        pipe.free_text_encoders()
+        return out
+
+    ctx, pooled = run("encode_prompt", encode_prompt)
+    latents = run("encode", lambda: pipe.encode_frames(frames, gen))
+    traj, feat = run("content_inversion", lambda: pipe.invert(
+        latents, ctx, pooled, num_steps=steps, is_rf_solver=True, capture_step=cap_step))
+    spipe = pipe.with_frames(1)
+    straj, _ = run("style_inversion", lambda: spipe.invert(
+        spipe.encode_frames(style, gen), ctx, pooled, num_steps=steps, is_rf_solver=True))
+    masks = run("mask_propagation", lambda: _propagate(feat, mask0, device))
+
+    def stylize():
+        content_rev = torch.flip(traj, dims=[0])
+        style_rev = torch.flip(straj, dims=[0])[:, :1]
+        init = latent_adain_sd3(content_rev[0], style_rev[0])
+        return pipe.stylize_latents(content_rev, style_rev, init, content_rev[-1],
+                                    torch.cat([ctx] * 3), torch.cat([pooled] * 3),
+                                    mask=masks.float() / 255.0,
+                                    cfg=StyleTransferConfig(num_steps=steps))
+
+    out = run("stylize", stylize)
+    video = run("decode", lambda: pipe.decode_latents_uint8(out, chunk=4))
+    rec = run("reconstruction", lambda: pipe.reconstruct_latents(
+        traj[-1], latents, ctx, pooled, num_steps=steps))
+    main_s = time.time() - t_main
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    if tuple(feat.shape) != (nf, px // 16, px // 16, pipe.mmdit.cfg.hidden):
+        raise AssertionError(f"captured feature {tuple(feat.shape)}")
+    psnr = _check_outputs({"context": ctx, "pooled": pooled, "trajectory": traj,
+                           "feature": feat, "style trajectory": straj,
+                           "stylized latents": out, "reconstruction": rec},
+                          masks, video, nf, px, traj[0], rec)
+    # 24 blocks x (two RF-Solver forwards + one reconstruction forward + one
+    # 2x16- or 16-frame stylization forward) per step
+    _check_launches(launches, {"video_flash_attention": 0,
+                               "video_flash_attention_tokens": 24 * 4 * steps})
+    summary = dict(steps=steps, frames=nf, size=px, stage_s=stage, main_path_s=main_s,
+                   workflow_frames_per_s=nf / main_s,
+                   stylize_frames_per_s=nf / (stage["stylize"] + stage["decode"]),
+                   recon_latent_psnr_db=psnr, launches=launches,
+                   masks_foreground=float((masks > 0).float().mean().item()),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[sd3] {json.dumps(summary)}", flush=True)
+    return launches
+
+
+def _entry(name, replaces, launches, cases, main_case):
+    return dict(name=name, route="cuda", source=SOURCE, replaces=replaces, launches=launches,
+                max_abs_err=max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16"),
+                err_over_tol=max(c["err_over_tol"] for c in cases),
+                planted_err_over_tol=main_case["planted_err_over_tol"],
+                ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+                bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+                library_ms=main_case["library_ms"], shape=main_case["shape"], cases=cases)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--steps", type=int, default=30, help="SD-1.5 steps (>= 27: both phases)")
+    p.add_argument("--sd3_steps", type=int, default=32, help="SD3 steps (>= 32: both phases)")
     args = p.parse_args(argv)
     try:
         import torch
@@ -362,21 +587,17 @@ def main(argv=None) -> int:
 
     smi = phase_device()
     phase_build()
-    cases = phase_kernels()
-    launches = phase_main_path(args.steps)
+    cases, tokens = phase_kernels()
+    sd_launches = phase_main_path(args.steps)
+    sd3_launches = phase_sd3(args.sd3_steps)
 
-    main_case = cases[0]
-    entry = dict(name="video_flash_attention", route="cuda",
-                 source="univst_torch/csrc/video_flash_attention.cu", replaces=TPU_KERNEL,
-                 launches=launches["video_flash_attention"],
-                 max_abs_err=max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16"),
-                 err_over_tol=max(c["err_over_tol"] for c in cases),
-                 planted_err_over_tol=main_case["planted_err_over_tol"],
-                 ms=main_case["ms"], plain_ms=main_case["plain_ms"],
-                 bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-                 library_ms=main_case["library_ms"], shape=main_case["shape"],
-                 cases=cases)
-    print(json.dumps({"kernels": [entry]}))
+    entries = [
+        _entry("video_flash_attention", TPU_KERNEL, sd_launches["video_flash_attention"],
+               cases, cases[0]),
+        _entry("video_flash_attention_tokens", TPU_KERNEL_FOLDED,
+               sd3_launches["video_flash_attention_tokens"], tokens, tokens[0]),
+    ]
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -50,7 +50,8 @@ def test_every_module_imports_without_jax():
 
 @pytest.mark.parametrize("cli", ["run_workflow", "run_content_inversion_sd",
                                  "run_style_inversion_sd", "mask_propagation",
-                                 "run_video_style_transfer_sd"])
+                                 "run_video_style_transfer_sd", "run_content_inversion_sd3",
+                                 "run_style_inversion_sd3", "run_video_style_transfer_sd3"])
 def test_cli_help_without_jax(cli):
     res = _run(f"import runpy; sys.argv = ['x', '--help']; "
                f"runpy.run_module('univst_torch.cli.{cli}', run_name='__main__')")
@@ -75,8 +76,29 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("backbone", ["animatediff", "sd3"])
-def test_unported_backbones_raise_clearly(backbone):
+def test_unported_backbones_raise_clearly(backbone, tmp_path):
+    """AnimateDiff is not ported and raises. The sd3 case now runs: the tiny
+    workflow on the CPU writes the reference tree with rank-4 trajectories
+    (``[F, C, h, w]`` fp16; frames are SD3's batch)."""
+    import torch
+
     from univst_torch.cli import run_workflow
 
-    with pytest.raises(SystemExit, match="not ported"):
-        run_workflow.main(run_workflow.build_parser().parse_args(["--backbone", backbone]))
+    if backbone == "animatediff":
+        with pytest.raises(SystemExit, match="not ported"):
+            run_workflow.main(run_workflow.build_parser().parse_args(["--backbone", backbone]))
+        return
+    ex = os.path.join(REPO, "examples")
+    run_workflow.main(run_workflow.build_parser().parse_args([
+        "--backbone", "sd3", "--variant", "tiny", "--platform", "cpu", "--num_frames", "2",
+        "--height", "32", "--width", "32", "--time_steps", "1", "--ft_indices", "0",
+        "--ft_timesteps", "0", "--content_path", os.path.join(ex, "contents", "demo-fly-tiny"),
+        "--style_path", os.path.join(ex, "styles", "tiny-00033.png"),
+        "--mask_path", os.path.join(ex, "masks", "demo-fly-tiny.png"),
+        "--output_root", str(tmp_path)]))
+    for stage, name in (("contents-inv", "demo-fly-tiny"), ("styles-inv", "tiny-00033")):
+        for i in range(2):
+            z = torch.load(tmp_path / stage / "sd3" / name / "inversion" / f"ddim_latents_{i}.pt",
+                           weights_only=True)
+            assert z.dtype == torch.float16 and tuple(z.shape) == (2, 16, 16, 16)
+    assert len(os.listdir(tmp_path / "stylizations" / "sd3" / "demo-fly-tiny_tiny-00033")) == 2

@@ -1,4 +1,4 @@
-"""Functional attention building blocks (PyTorch port of the SD half of
+"""Functional attention building blocks (PyTorch port of
 ``univst_tpu/attention/ops.py``).
 
 The reference implements its method by patching ``attn1.forward`` on selected
@@ -8,7 +8,8 @@ is a set of plain functions over (q, k, v) that take the step index and a
 
 Layouts (as in the JAX package):
   * pre-head tensors: ``[B, L, D]`` with ``B = branches * frames``
-  * per-head tensors: ``[B, heads, N, Dh]``
+  * per-head tensors: ``[B, heads, N, Dh]``, or token-major
+    ``[B, N, heads, Dh]`` (SD3; a free view of the projection output)
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from univst_torch.core.adain import attention_adain
+from univst_torch.core.adain import (
+    attention_adain, attention_adain_sd3, attention_adain_sd3_tm,
+)
 from univst_torch.core.config import FrameIndex, StyleShiftConfig
 
 
@@ -64,12 +67,26 @@ def cross_frame_kv(x: torch.Tensor, num_frames: int, indices: Sequence[FrameInde
     return torch.cat(gathers, dim=2).reshape(bf, l * len(indices), d)
 
 
-def _shift(q_cnt, q_sty, k_sty, v_sty, k_style, v_style, beta: float, cfg: StyleShiftConfig):
+def cross_frame_kv_heads(x: torch.Tensor, num_frames: int, indices: Sequence[FrameIndex]):
+    """Sparse-causal KV expansion on per-head ``[B*F, H, N, Dh]`` tensors
+    (the SD3 layout; reference sd3 pnp_utils.py:53-78 gathers after the
+    head split). Returns ``[B*F, H, N * len(indices), Dh]``."""
+    if not indices:
+        return x
+    bf, h, n, dh = x.shape
+    xv = x.reshape(bf // num_frames, num_frames, h, n, dh)
+    gathers = [xv[:, torch.as_tensor(m, dtype=torch.long, device=x.device)]
+               for m in resolve_frame_indices(indices, num_frames)]
+    return torch.cat(gathers, dim=3).reshape(bf, h, n * len(indices), dh)
+
+
+def _shift(q_cnt, q_sty, k_sty, v_sty, k_style, v_style, beta: float, cfg: StyleShiftConfig,
+           adain=attention_adain):
     q_new = cfg.gamma * (cfg.alpha * q_cnt + (1.0 - cfg.alpha) * q_sty)
     # fp32 blend of the adain output (rounded to the working type first, as
     # the JAX package's dtype promotion does)
-    k_new = beta * attention_adain(k_sty, k_style).float() + (1.0 - beta) * k_style.float()
-    v_new = beta * attention_adain(v_sty, v_style).float() + (1.0 - beta) * v_style.float()
+    k_new = beta * adain(k_sty, k_style).float() + (1.0 - beta) * k_style.float()
+    v_new = beta * adain(v_sty, v_style).float() + (1.0 - beta) * v_style.float()
     return q_new.to(q_sty.dtype), k_new.to(k_sty.dtype), v_new.to(v_sty.dtype)
 
 
@@ -107,6 +124,39 @@ def apply_style_shift_injected(q, k, v, style_k, style_v, step_idx: int,
     f = num_frames
     q_out, k_out, v_out = _shift(q[:f], q[f:], k[f:], v[f:], style_k, style_v,
                                  cfg.beta(step_idx), cfg)
+    return (torch.cat([q[:f], q_out]), torch.cat([k[:f], k_out]), torch.cat([v[:f], v_out]))
+
+
+def apply_style_shift_sd3(q, k, v, step_idx: int, cfg: StyleShiftConfig, num_frames: int,
+                          token_major: bool = False):
+    """SD3 variant of :func:`apply_style_shift` on per-head ``[3F, heads, N,
+    Dh]`` tensors after the q/k norms (reference: video_diffusion_sd3/
+    pnp_utils.py:181-194). ``token_major`` takes ``[3F, N, heads, Dh]``
+    tensors and switches the AdaIN reduction axes; the rest is axis-0
+    slicing and elementwise math, the same in both layouts."""
+    if not cfg.window_gate(step_idx):
+        return q, k, v
+    f = num_frames
+    adain = attention_adain_sd3_tm if token_major else attention_adain_sd3
+    q_out, k_out, v_out = _shift(q[:f], q[2 * f:], k[2 * f:], v[2 * f:], k[f:2 * f],
+                                 v[f:2 * f], cfg.beta(step_idx), cfg, adain)
+    return (torch.cat([q[:2 * f], q_out]), torch.cat([k[:2 * f], k_out]),
+            torch.cat([v[:2 * f], v_out]))
+
+
+def apply_style_shift_sd3_injected(q, k, v, style_k, style_v, step_idx: int,
+                                   cfg: StyleShiftConfig, num_frames: int,
+                                   token_major: bool = False):
+    """SD3 2-branch variant on per-head ``[2F, heads, N, Dh]`` tensors
+    ([content | stylized]) with the style branch's K/V injected as ``[1,
+    heads, N, Dh]`` (identical style frames run once); ``token_major``: see
+    :func:`apply_style_shift_sd3`."""
+    if not cfg.window_gate(step_idx):
+        return q, k, v
+    f = num_frames
+    adain = attention_adain_sd3_tm if token_major else attention_adain_sd3
+    q_out, k_out, v_out = _shift(q[:f], q[f:], k[f:], v[f:], style_k, style_v,
+                                 cfg.beta(step_idx), cfg, adain)
     return (torch.cat([q[:f], q_out]), torch.cat([k[:f], k_out]), torch.cat([v[:f], v_out]))
 
 
@@ -155,3 +205,60 @@ def mha(q, k, v, num_heads: int, scale: Optional[float] = None):
     # the counterpart is PyTorch's fused attention
     out = F.scaled_dot_product_attention(split(q, tq), split(k, s), split(v, s), scale=scale)
     return out.transpose(1, 2).reshape(b, tq, d)
+
+
+def joint_video_attention_tokens(q, k, v, num_frames: int, frame_indices: Sequence[FrameIndex],
+                                 cq=None, ck=None, cv=None, scale: Optional[float] = None):
+    """SD3/MMDiT joint attention with sparse-causal video K/V on token-major
+    per-head tensors ``[B*F, L, H, dh]`` (a free view of the projection
+    output ``[B*F, L, H*dh]``), plus optional context streams
+    ``[B*F, Lc, H, dh]``.
+
+    Reference semantics (sd3 pnp_utils.py:53-84): expand the image K/V by
+    gathering the ``frame_indices`` frames, append the context K/V, and run
+    attention over the joint ``[img*slots | ctx]`` sequence for the joint
+    ``[img | ctx]`` queries. On a CUDA tensor, under the JAX package's gate
+    (an index set, n >= 1024, n % 128 == 0, B*F a multiple of F), this is
+    one launch of the token-major video flash kernel (K2): image and context
+    queries go as one ``[img | ctx]`` stream against the unexpanded image
+    K/V and the frame's own context K/V, and nothing is expanded. The
+    kernel masks the ragged last q tile and the partial context tile
+    itself, so unlike the TPU route no pad rows exist. Elsewhere (the CPU
+    and the short sequences) the head-major expand + concat path runs, with
+    PyTorch's fused attention.
+
+    Returns ``[B*F, L(+Lc), H, dh]`` (context rows appended when ``cq`` is
+    given).
+    """
+    bf, n, nh, dh = q.shape
+    f = num_frames
+    has_ctx = cq is not None
+    if q.device.type == "cuda" and frame_indices and n >= 1024 and n % 128 == 0 and bf % f == 0:
+        from univst_torch.attention.video_flash import video_flash_attention_tokens
+
+        b = bf // f
+        dt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+
+        def r5(x):
+            return x.reshape(b, f, x.shape[1], nh, dh).to(dt).contiguous()
+
+        qj = torch.cat([q, cq], dim=1) if has_ctx else q
+        ctx_kw = dict(ctx_k=r5(ck), ctx_v=r5(cv), ctx_valid=ck.shape[1]) if has_ctx else {}
+        out = video_flash_attention_tokens(
+            r5(qj), r5(k), r5(v), tuple(frame_indices),
+            sm_scale=float(dh**-0.5 if scale is None else scale), **ctx_kw)
+        return out.reshape(bf, qj.shape[1], nh, dh).to(q.dtype)
+
+    def hm(x):
+        return x.transpose(1, 2)
+
+    kx = cross_frame_kv_heads(hm(k), f, frame_indices)
+    vx = cross_frame_kv_heads(hm(v), f, frame_indices)
+    qh = hm(q)
+    if has_ctx:
+        qh = torch.cat([qh, hm(cq)], dim=2)
+        kx = torch.cat([kx, hm(ck)], dim=2)
+        vx = torch.cat([vx, hm(cv)], dim=2)
+    # the JAX package's heads_attention calls a library TPU flash kernel; the
+    # counterpart is PyTorch's fused attention
+    return F.scaled_dot_product_attention(qh, kx, vx, scale=scale).transpose(1, 2)

@@ -1,9 +1,16 @@
-"""Sparse-causal video flash attention: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""Sparse-causal video flash attention: the CUDA kernels' wrappers and their
+plain PyTorch versions, in two layouts.
 
-Replaces the Pallas TPU kernel
-``univst_tpu/attention/pallas_attention.py::video_flash_attention``. Each
-target frame attends the concatenation of the K/V of its source frames
+* :func:`video_flash_attention` (K1) replaces the Pallas TPU kernel
+  ``univst_tpu/attention/pallas_attention.py::video_flash_attention`` on
+  head-major ``[B, F, H, L, dh]`` tensors (the SD UNet's attn1).
+* :func:`video_flash_attention_tokens` (K2) replaces
+  ``pallas_attention.py::video_flash_attention_folded`` on token-major
+  ``[B, F, L, H, dh]`` tensors, free views of the projection output
+  ``[B*F, L, H*dh]`` (the SD3 MMDiT's joint attention), with the output in
+  the same layout: no head transpose on either side.
+
+Each target frame attends the concatenation of the K/V of its source frames
 (``resolve_frame_indices``), read unexpanded. What bounds it on the H100 is
 tensor-core arithmetic — 4 * Lq * dh * L FLOPs per kept slot and head,
 about 2 ms at the SD-1.5 64x64 level — not bytes: each block keeps its query
@@ -12,12 +19,13 @@ no expanded K/V and no logits reach device memory. bf16 runs on the tensor
 cores (mma.sync, fp32 accumulation), with dh padded to the MMA depth in
 shared memory only; fp32 keeps exact fp32 arithmetic on the CUDA cores.
 Duplicate slots are skipped and their mass folded into the kept slot's
-multiplicity, which cuts the FLOPs of the first two frames. The kernel is
-``univst_torch/csrc/video_flash_attention.cu``.
+multiplicity, which cuts the FLOPs of the first two frames. Both kernels are
+one templated body in ``univst_torch/csrc/video_flash_attention.cu`` that
+differs only in addressing, with a C entry point each.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. ``video_flash_attention.launches`` counts
-kernel launches.
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises. ``video_flash_attention.launches`` and
+``video_flash_attention_tokens.launches`` count kernel launches, apart.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import torch
 from univst_torch.attention.ops import resolve_frame_indices
 
 _KERNEL = "video_flash_attention"
-_fn = None
+_fns = {}
 
 
 def slot_tables(frame_indices: Sequence, num_frames: int):
@@ -55,13 +63,22 @@ def _device_tables(frame_indices: tuple, num_frames: int, device: torch.device):
     return (torch.from_numpy(srcs).to(device), torch.from_numpy(mult).to(device))
 
 
-def _check(q, k, v, frame_indices, ctx_k, ctx_v, ctx_valid):
+def _check(q, k, v, frame_indices, ctx_k, ctx_v, ctx_valid, seq_axis: int = 3):
+    """Shapes, types, devices and contiguity the kernels take; ``seq_axis``
+    is 3 head-major (``[B, F, H, L, dh]``) and 2 token-major
+    (``[B, F, L, H, dh]``)."""
     if not frame_indices:
-        raise ValueError("video_flash_attention needs a non-empty frame index set")
+        raise ValueError("video flash attention needs a non-empty frame index set")
     if q.dim() != 5 or k.dim() != 5 or k.shape != v.shape:
-        raise ValueError(f"want q [B,F,H,Lq,dh], k/v [B,F,H,L,dh]; got {tuple(q.shape)}, "
+        raise ValueError(f"want 5-d q and k/v of one shape; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if q.shape[:3] != k.shape[:3] or q.shape[4] != k.shape[4]:
+    other = 5 - seq_axis  # the head axis: 2 head-major, 3 token-major
+
+    def same(a, b):  # every axis but the sequence axis
+        return a.shape[:2] == b.shape[:2] and a.shape[other] == b.shape[other] \
+            and a.shape[4] == b.shape[4]
+
+    if not same(q, k):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
     dh = q.shape[4]
     if dh > 128 or dh % 8:
@@ -70,10 +87,10 @@ def _check(q, k, v, frame_indices, ctx_k, ctx_v, ctx_valid):
     if (ctx_k is None) != (ctx_v is None):
         raise ValueError("ctx_k and ctx_v go together")
     if ctx_k is not None:
-        if ctx_k.shape != ctx_v.shape or ctx_k.shape[:3] != q.shape[:3] or ctx_k.shape[4] != dh:
+        if ctx_k.shape != ctx_v.shape or not same(q, ctx_k):
             raise ValueError(f"ctx k/v {tuple(ctx_k.shape)} do not match q {tuple(q.shape)}")
-        if not 1 <= ctx_valid <= ctx_k.shape[3]:
-            raise ValueError(f"ctx_valid={ctx_valid} outside [1, {ctx_k.shape[3]}]")
+        if not 1 <= ctx_valid <= ctx_k.shape[seq_axis]:
+            raise ValueError(f"ctx_valid={ctx_valid} outside [1, {ctx_k.shape[seq_axis]}]")
     for t in tensors:
         if t.dtype not in (torch.float32, torch.bfloat16) or t.dtype != q.dtype:
             raise TypeError(f"want one dtype of float32/bfloat16, got {[x.dtype for x in tensors]}")
@@ -107,17 +124,37 @@ def video_flash_attention_plain(q, k, v, frame_indices: Sequence, sm_scale: Opti
     return out
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
+def _kernel_fn(symbol: str):
+    fn = _fns.get(symbol)
+    if fn is None:
         from univst_torch._build import load_library
 
-        fn = load_library(_KERNEL).univst_video_flash_attention
+        fn = getattr(load_library(_KERNEL), symbol)
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[symbol] = fn
+    return fn
+
+
+def _launch(symbol: str, q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid,
+            h: int, lq: int, l: int, lc: int):
+    """Launch one kernel on q's current stream; ``out`` is q's layout."""
+    b, f, dh = q.shape[0], q.shape[1], q.shape[4]
+    scale = float(dh**-0.5 if sm_scale is None else sm_scale)
+    fn = _kernel_fn(symbol)
+    srcs, mult = _device_tables(tuple(frame_indices), f, q.device)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 ctx_k.data_ptr() if ctx_k is not None else None,
+                 ctx_v.data_ptr() if ctx_v is not None else None,
+                 out.data_ptr(), srcs.data_ptr(), mult.data_ptr(),
+                 b, f, h, lq, l, lc, ctx_valid or 0, dh, srcs.shape[1], scale,
+                 int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
+    return out
 
 
 def video_flash_attention(q, k, v, frame_indices: Sequence, sm_scale: Optional[float] = None,
@@ -142,24 +179,60 @@ def video_flash_attention(q, k, v, frame_indices: Sequence, sm_scale: Optional[f
                                            ctx_valid)
     if q.device.type != "cuda":
         raise ValueError(f"video_flash_attention runs on CPU or CUDA, not {q.device}")
-    b, f, h, lq, dh = q.shape
-    l = k.shape[3]
-    scale = float(dh**-0.5 if sm_scale is None else sm_scale)
-    fn = _kernel_fn()
-    srcs, mult = _device_tables(tuple(frame_indices), f, q.device)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 ctx_k.data_ptr() if ctx_k is not None else None,
-                 ctx_v.data_ptr() if ctx_v is not None else None,
-                 out.data_ptr(), srcs.data_ptr(), mult.data_ptr(),
-                 b, f, h, lq, l, ctx_k.shape[3] if ctx_k is not None else 0,
-                 ctx_valid or 0, dh, srcs.shape[1], scale,
-                 int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"video_flash_attention kernel launch failed: CUDA error {err}")
+    out = _launch("univst_video_flash_attention", q, k, v, frame_indices, sm_scale, ctx_k,
+                  ctx_v, ctx_valid, h=q.shape[2], lq=q.shape[3], l=k.shape[3],
+                  lc=ctx_k.shape[3] if ctx_k is not None else 0)
     video_flash_attention.launches += 1
     return out
 
 
 video_flash_attention.launches = 0
+
+
+def _head_major(x):
+    return None if x is None else x.transpose(2, 3)
+
+
+def video_flash_attention_tokens_plain(q, k, v, frame_indices: Sequence,
+                                       sm_scale: Optional[float] = None, ctx_k=None,
+                                       ctx_v=None, ctx_valid: Optional[int] = None):
+    """Plain PyTorch version of :func:`video_flash_attention_tokens`: the
+    head-major plain version on transposed views, transposed back."""
+    out = video_flash_attention_plain(
+        _head_major(q), _head_major(k), _head_major(v), frame_indices, sm_scale,
+        _head_major(ctx_k), _head_major(ctx_v), ctx_valid)
+    return out.transpose(2, 3).contiguous()
+
+
+def video_flash_attention_tokens(q, k, v, frame_indices: Sequence,
+                                 sm_scale: Optional[float] = None, ctx_k=None, ctx_v=None,
+                                 ctx_valid: Optional[int] = None):
+    """:func:`video_flash_attention` on token-major tensors, the layout of
+    ``pallas_attention.py::video_flash_attention_folded``.
+
+    Args:
+      q: ``[B, F, Lq, H, dh]`` (Lq may differ from L and need not be a
+        multiple of the kernel's 64-row tile).
+      k, v: ``[B, F, L, H, dh]``.
+      frame_indices: sparse-causal index set, e.g. ``('first', -1, 0)``.
+      ctx_k, ctx_v: optional ``[B, F, Lc, H, dh]`` per-frame context K/V that
+        every query of the frame also attends, limited to the first
+        ``ctx_valid`` (default Lc) tokens.
+    Returns ``[B, F, Lq, H, dh]`` in the input dtype (float32 or bfloat16).
+    """
+    if ctx_k is not None and ctx_valid is None:
+        ctx_valid = ctx_k.shape[2]
+    _check(q, k, v, frame_indices, ctx_k, ctx_v, ctx_valid, seq_axis=2)
+    if q.device.type == "cpu":
+        return video_flash_attention_tokens_plain(q, k, v, frame_indices, sm_scale, ctx_k,
+                                                  ctx_v, ctx_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"video_flash_attention_tokens runs on CPU or CUDA, not {q.device}")
+    out = _launch("univst_video_flash_attention_tokens", q, k, v, frame_indices, sm_scale,
+                  ctx_k, ctx_v, ctx_valid, h=q.shape[3], lq=q.shape[2], l=k.shape[2],
+                  lc=ctx_k.shape[2] if ctx_k is not None else 0)
+    video_flash_attention_tokens.launches += 1
+    return out
+
+
+video_flash_attention_tokens.launches = 0

@@ -76,8 +76,8 @@ def load_feature_pt(path: str) -> np.ndarray:
 
 
 def check_backbone(args) -> None:
-    """The port runs the SD backbone on one device; the rest raises."""
-    if getattr(args, "backbone", "sd") not in (None, "sd"):
+    """The port runs the SD and SD3 backbones on one device; the rest raises."""
+    if getattr(args, "backbone", "sd") not in (None, "sd", "sd3"):
         raise SystemExit(f"--backbone {args.backbone} {NOT_PORTED}")
     if getattr(args, "mesh", None):
         raise SystemExit(f"--mesh {NOT_PORTED}")
@@ -121,3 +121,24 @@ def require_singleton_style(style_inv_path: str, time_steps: int) -> None:
     if not style_frames_identical(style_inv_path, time_steps):
         raise SystemExit(f"style trajectory at {style_inv_path} has non-identical frames; "
                          f"that stylization path {NOT_PORTED}")
+
+
+def singleton_style_or_fallback(pipe, style_rev, style_inv_path: str, time_steps: int):
+    """The SD3 transfer CLI's style-singleton guard (``univst_tpu/cli/
+    common.py:142-166``): the fast path keeps one frame of the style
+    trajectory, exact only when all its frames are identical (true for
+    run_style_inversion_* outputs). Another trajectory falls back to the
+    exact 3-branch batch with a warning instead of silently dropping frames.
+
+    Returns the (possibly replaced) pipeline and style trajectory.
+    """
+    import dataclasses
+    import warnings
+
+    from univst_torch.core.trajectory import style_frames_identical
+
+    if style_frames_identical(style_inv_path, time_steps):
+        return pipe, style_rev[:, :1]
+    warnings.warn(f"style trajectory at {style_inv_path} has non-identical frames; "
+                  "disabling the style-singleton fast path")
+    return dataclasses.replace(pipe, style_singleton=False), style_rev

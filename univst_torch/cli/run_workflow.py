@@ -6,7 +6,7 @@ propagation, video style transfer — the reference's scripts/start_*.sh)
 in one Python process. Each stage reuses the stage CLI's own parser and
 ``main`` with the argv scripts/start_*.sh would pass, so flags and output
 layouts are those of the separate stage CLIs. Runs on CUDA unless
-``--platform cpu``; the SD backbone is ported, the others raise.
+``--platform cpu``; the SD and SD3 backbones are ported, AnimateDiff raises.
 
 Usage:
   python -m univst_torch.cli.run_workflow --backbone sd \
@@ -28,6 +28,8 @@ from univst_torch.cli.common import NOT_PORTED
 _STAGE_MODULES = {
     "sd": ("run_content_inversion_sd", "run_style_inversion_sd",
            "run_video_style_transfer_sd"),
+    "sd3": ("run_content_inversion_sd3", "run_style_inversion_sd3",
+            "run_video_style_transfer_sd3"),
 }
 _BACKBONES = ("sd", "animatediff", "sd3")
 
@@ -97,7 +99,8 @@ def main(args):
             **shared,
             "--content_path": args.content_path,
             "--output_path": f"{root}/contents-inv",
-            "--is_opt": True,
+            "--is_opt": args.backbone == "sd",
+            "--is_rf_solver": args.backbone == "sd3",
             "--ft_indices": args.ft_indices,
             "--ft_timesteps": args.ft_timesteps,
         })
@@ -107,6 +110,7 @@ def main(args):
             **shared,
             "--style_path": args.style_path,
             "--output_path": f"{root}/styles-inv",
+            "--is_rf_solver": args.backbone == "sd3",
         })
     if "mask" in stages:
         if ft_i is None:  # not given + stage skipped: read the CLI defaults

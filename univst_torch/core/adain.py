@@ -1,8 +1,9 @@
-"""AdaIN operators with exact reference semantics (PyTorch port of the SD
-half of ``univst_tpu/core/adain.py``).
+"""AdaIN operators with exact reference semantics (PyTorch port of
+``univst_tpu/core/adain.py``).
 
 The reference computes ``F.instance_norm(cnt) * sty_std + sty_mean``
-(backbones/video_diffusion_sd/pnp_utils.py:114-139). Two quirks are kept on
+(backbones/video_diffusion_sd/pnp_utils.py:114-139;
+backbones/video_diffusion_sd3/pnp_utils.py:289-316). Two quirks are kept on
 purpose because output parity depends on them:
 
   1. the scale/shift statistics use torch's default *unbiased* std (N-1),
@@ -12,7 +13,8 @@ purpose because output parity depends on them:
      over the tokens the statistics are taken over.
 
 Layouts follow the JAX package: latents ``[F, H, W, C]``, attention tensors
-``[B, L, D]``. All statistics are fp32; the result has the content's dtype.
+``[B, L, D]`` (SD) or per head ``[B, heads, N, C]`` / token-major
+``[B, N, heads, C]`` (SD3). All statistics are fp32; the result has the content's dtype.
 """
 
 from __future__ import annotations
@@ -52,6 +54,27 @@ def attention_adain(cnt_feat: torch.Tensor, sty_feat: torch.Tensor) -> torch.Ten
     return out.to(cnt_feat.dtype)
 
 
+def attention_adain_sd3(cnt_feat: torch.Tensor, sty_feat: torch.Tensor) -> torch.Tensor:
+    """AdaIN for SD3 per-head K/V ``[B, heads, N, C]``.
+
+    Style stats per-(B, heads, C) over N (sd3 pnp_utils.py:292-295,
+    dim=[-2]); normalization per-(B, heads) jointly over (N, C), as
+    F.instance_norm treats dims (2, 3) of a 4-d input (sd3 pnp_utils.py:300).
+    """
+    sty = sty_feat.float()
+    out = _instance_norm(cnt_feat, (2, 3)) * _std_unbiased(sty, -2) + sty.mean(dim=-2, keepdim=True)
+    return out.to(cnt_feat.dtype)
+
+
+def attention_adain_sd3_tm(cnt_feat: torch.Tensor, sty_feat: torch.Tensor) -> torch.Tensor:
+    """:func:`attention_adain_sd3` on token-major ``[B, N, heads, C]``
+    tensors: style stats per-(B, heads, C) over N (axis 1), normalization
+    per-(B, heads) over (N, C) = axes (1, 3)."""
+    sty = sty_feat.float()
+    out = _instance_norm(cnt_feat, (1, 3)) * _std_unbiased(sty, 1) + sty.mean(dim=1, keepdim=True)
+    return out.to(cnt_feat.dtype)
+
+
 def latent_adain(cnt_feat: torch.Tensor, sty_feat: torch.Tensor) -> torch.Tensor:
     """Init/anchor latent AdaIN over ``[F, H, W, C]`` latents.
 
@@ -61,5 +84,15 @@ def latent_adain(cnt_feat: torch.Tensor, sty_feat: torch.Tensor) -> torch.Tensor
     """
     sty = sty_feat.float()
     out = (_instance_norm(cnt_feat, (0, 1, 2)) * _std_unbiased(sty, (1, 2))
+           + sty.mean(dim=(1, 2), keepdim=True))
+    return out.to(cnt_feat.dtype)
+
+
+def latent_adain_sd3(cnt_feat: torch.Tensor, sty_feat: torch.Tensor) -> torch.Tensor:
+    """SD3 latent AdaIN over ``[F, H, W, C]`` latents: stats and
+    normalization both per-(F, C) over (H, W) (sd3 pnp_utils.py:305-316,
+    reference layout ``[F, C, H, W]``)."""
+    sty = sty_feat.float()
+    out = (_instance_norm(cnt_feat, (1, 2)) * _std_unbiased(sty, (1, 2))
            + sty.mean(dim=(1, 2), keepdim=True))
     return out.to(cnt_feat.dtype)

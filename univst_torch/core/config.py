@@ -81,10 +81,13 @@ class StyleShiftConfig:
 
 # Per-backbone presets (constants lifted from the reference pnp modules).
 SD_STYLE_SHIFT = StyleShiftConfig(alpha=0.65, gamma=3.0, eta2=0.5, window_mode="sd")
+# SD3's window is steps 0-30 of the 50-step constants: window_end() is 31
+SD3_STYLE_SHIFT = StyleShiftConfig(alpha=0.8, gamma=2.0, eta2=0.6, window_mode="sd3")
 
 # Cross-frame (sparse-causal) KV index presets.
 SD_BASE_FRAME_INDICES: Tuple[FrameIndex, ...] = (-1, 0, "first")  # sd attention.py:356
 SD_PNP_FRAME_INDICES: Tuple[FrameIndex, ...] = (-1, "first")  # sd pnp_utils.py:25
+SD3_FRAME_INDICES: Tuple[FrameIndex, ...] = ("first", -1, 0)  # sd3 pnp_utils.py:27
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +97,11 @@ class StyleTransferConfig:
     num_steps: int = 50
     # localized latent blending active for i <= blend_hi * N
     blend_hi: float = 0.9
-    # AdaIN re-anchor window (adain_lo * N, adain_hi * N]
+    # AdaIN re-anchor window (adain_lo * N, adain_hi * N]; SD3 closes both ends
     adain_lo: float = 0.8
     adain_hi: float = 0.9
+    # SD3 controlled-velocity pull (custom_pipeline.py:157-161, flow_inversion.py:61-64)
+    eta_base: float = 0.85
+    eta_trend: str = "constant"
+    eta_start_step: int = 25
+    eta_end_step: int = 39

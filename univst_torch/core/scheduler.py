@@ -1,15 +1,16 @@
-"""DDIM schedule and EasyInv constants (PyTorch port of the DDIM half of
-``univst_tpu/core/scheduler.py``).
+"""DDIM and flow-matching schedules and the EasyInv constants (PyTorch port
+of ``univst_tpu/core/scheduler.py``).
 
-The alpha-bar table is built in float64 on the host and kept as float32;
-every update runs in float32 whatever the model's working type (the
-reference upcasts the same way). Timesteps are Python ints: the loops that
-call these functions run in Python.
+The alpha-bar table and the sigmas are built in float64 on the host and kept
+as float32; every update runs in float32 whatever the model's working type
+(the reference upcasts the same way). Timesteps and sigmas are host numbers:
+the loops that call these functions run in Python.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -115,3 +116,107 @@ class EasyInvConfig:
         fi = np.float32(i)
         return bool(lo < fi < hi and fi > 0)
 
+
+# ---------------------------------------------------------------------------
+# Flow matching (SD3 / SD3.5)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowMatchConfig:
+    """diffusers FlowMatchEulerDiscreteScheduler config for SD3/SD3.5."""
+
+    num_train_timesteps: int = 1000
+    shift: float = 3.0
+    use_dynamic_shifting: bool = False
+    base_shift: float = 0.5
+    max_shift: float = 1.15
+    base_image_seq_len: int = 256
+    max_image_seq_len: int = 4096
+
+
+def calculate_shift(image_seq_len: int, base_seq_len: int = 256, max_seq_len: int = 4096,
+                    base_shift: float = 0.5, max_shift: float = 1.15) -> float:
+    """Dynamic mu for resolution-dependent sigma shifting
+    (reference: custom_pipeline.py:374-385)."""
+    m = (max_shift - base_shift) / (max_seq_len - base_seq_len)
+    b = base_shift - m * base_seq_len
+    return image_seq_len * m + b
+
+
+class FlowMatchSchedule:
+    """Sigma schedule + Euler / midpoint step functions for rectified flow."""
+
+    def __init__(self, cfg: FlowMatchConfig = FlowMatchConfig()):
+        self.cfg = cfg
+
+    def sigmas(self, num_inference_steps: int, mu: Optional[float] = None) -> np.ndarray:
+        """Descending float32 sigmas [s_0 ... s_{N-1}, 0], s_0 = sigma_max
+        (FlowMatchEulerDiscreteScheduler.set_timesteps: linspace over train
+        timesteps, normalize, dynamic or static shift, append 0)."""
+        cfg = self.cfg
+        ts = np.linspace(1, cfg.num_train_timesteps, num_inference_steps, dtype=np.float64)[::-1]
+        s = ts / cfg.num_train_timesteps
+        if cfg.use_dynamic_shifting:
+            if mu is None:
+                raise ValueError("dynamic shifting requires mu")
+            s = np.exp(mu) / (np.exp(mu) + (1.0 / s - 1.0))
+        else:
+            s = cfg.shift * s / (1.0 + (cfg.shift - 1.0) * s)
+        return np.concatenate([s, [0.0]]).astype(np.float32)
+
+    def timesteps(self, num_inference_steps: int, mu: Optional[float] = None) -> np.ndarray:
+        """Descending model-facing timesteps = sigma * num_train_timesteps."""
+        return self.sigmas(num_inference_steps, mu)[:-1] * self.cfg.num_train_timesteps
+
+    @staticmethod
+    def euler_step(velocity, sigma, sigma_next, sample):
+        """x_next = x + (sigma_next - sigma) * v, in fp32, both directions
+        (denoising descends the sigmas; RF inversion climbs the flipped
+        schedule, flow_inversion.py:144-177)."""
+        x = sample.float()
+        out = x + float(np.float32(sigma_next) - np.float32(sigma)) * velocity.float()
+        return out.to(sample.dtype)
+
+    @staticmethod
+    def rf_solver_step(velocity, velocity_mid, sigma, sigma_next, sample):
+        """Second-order midpoint update (reference: flow_inversion.py:239-253):
+        x += dt * v + 0.5 * dt^2 * (v_mid - v) / (dt / 2)."""
+        dt = np.float32(sigma_next) - np.float32(sigma)
+        x, v, vm = sample.float(), velocity.float(), velocity_mid.float()
+        first_order = (vm - v) / float(dt / np.float32(2.0))
+        out = x + float(dt) * v + float(np.float32(0.5) * dt * dt) * first_order
+        return out.to(sample.dtype)
+
+
+def scale_eta_window(start_step: int, end_step: int, num_steps: int, base_steps: int = 50):
+    """Scale the reference's 50-step eta window constants (25/39,
+    flow_inversion.py:61-64) to other step counts, keeping a nonempty window."""
+    if num_steps == base_steps:
+        return start_step, end_step
+    s = int(round(start_step * num_steps / base_steps))
+    e = int(round(end_step * num_steps / base_steps))
+    s = max(0, min(s, num_steps - 1))
+    e = max(s + 1, min(e, num_steps))
+    return s, e
+
+
+def generate_eta_values(timesteps: Sequence[float], start_step: int, end_step: int, eta: float,
+                        eta_trend: str = "constant") -> np.ndarray:
+    """Controlled-velocity eta schedule (reference: custom_pipeline.py:18-44);
+    timesteps decrease and eta is nonzero on [start, end)."""
+    n = len(timesteps)
+    if not 0 <= start_step < end_step <= n:
+        raise ValueError(f"invalid eta window [{start_step}, {end_step}) for {n} steps")
+    ts = np.asarray(timesteps, dtype=np.float64)
+    etas = np.zeros(n, dtype=np.float32)
+    if eta_trend == "constant":
+        etas[start_step:end_step] = eta
+    elif eta_trend in ("linear_increase", "linear_decrease"):
+        total = ts[start_step] - ts[end_step - 1]
+        for i in range(start_step, end_step):
+            num = ts[start_step] - ts[i] if eta_trend == "linear_increase" else ts[i] - ts[end_step - 1]
+            etas[i] = eta * num / total
+    else:
+        raise NotImplementedError(f"unsupported eta_trend: {eta_trend}")
+    return etas

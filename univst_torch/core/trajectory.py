@@ -3,8 +3,9 @@
 The reference persists every per-step inversion latent as
 ``ddim_latents_{i}.pt`` (inversion_tools/ddim_inversion.py:95-111) and the
 stages hand off through those files, so the format is kept byte for byte:
-torch fp16 tensors, the reference names and its ``[1, C, F, H, W]`` layout.
-In memory a trajectory is one stacked ``[T+1, F, H, W, C]`` tensor.
+torch fp16 tensors, the reference names and its ``[1, C, F, H, W]`` layout
+(``[F, C, H, W]`` for SD3, which batches frames). In memory a trajectory is
+one stacked ``[T+1, F, H, W, C]`` tensor.
 """
 
 from __future__ import annotations
@@ -28,16 +29,22 @@ def _from_reference_layout(x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unexpected latent rank {x.ndim}")
 
 
-def save_trajectory(trajectory, path: str) -> None:
+def save_trajectory(trajectory, path: str, reference_rank: int = 5) -> None:
     """Write ``ddim_latents_{i}.pt`` for every step i (reference filenames).
 
     ``trajectory`` is ``[T+1, F, H, W, C]`` (tensor on any device, or numpy).
+    ``reference_rank`` 5 writes ``[1, C, F, H, W]`` (SD / AnimateDiff), 4
+    writes ``[F, C, H, W]`` (SD3, flow_inversion.py:149-151).
     """
+    if reference_rank not in (4, 5):
+        raise ValueError(f"reference_rank must be 4 or 5, got {reference_rank}")
     os.makedirs(path, exist_ok=True)
     traj = torch.as_tensor(trajectory).detach().cpu()
     for i in range(traj.shape[0]):
+        x = traj[i].float()
+        ref = _to_reference_layout(x) if reference_rank == 5 else x.permute(0, 3, 1, 2)
         # fp32 -> fp16 on the host, as numpy's astype does in the JAX package
-        ref = _to_reference_layout(traj[i].float()).to(torch.float16).contiguous()
+        ref = ref.to(torch.float16).contiguous()
         torch.save(ref, os.path.join(path, f"ddim_latents_{i}.pt"))
 
 

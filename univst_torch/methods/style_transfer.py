@@ -1,22 +1,23 @@
-"""AdaIN-guided localized style transfer loop — port of the DDIM half of
+"""AdaIN-guided localized style transfer loops — port of
 ``univst_tpu/methods/style_transfer.py``.
 
-Rebuild of ``video_style_transfer`` (backbones/video_diffusion_sd/pipelines/
-stable_diffusion.py:630-766): the content and style trajectories are stacked
-tensors indexed per step, and the mask is resized once up front.
+Rebuild of ``video_style_transfer`` (SD: backbones/video_diffusion_sd/
+pipelines/stable_diffusion.py:630-766; SD3: backbones/video_diffusion_sd3/
+pipelines/custom_pipeline.py:126-371): the content and style trajectories
+are stacked tensors indexed per step, and the mask is resized once up front.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from univst_torch.core.adain import latent_adain
+from univst_torch.core.adain import latent_adain, latent_adain_sd3
 from univst_torch.core.config import StyleTransferConfig
-from univst_torch.core.scheduler import DDIMSchedule
+from univst_torch.core.scheduler import DDIMSchedule, FlowMatchSchedule
 
 
 def _resize_mask(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -84,3 +85,81 @@ def style_transfer_ddim_steps(
             eps = denoise3(torch.cat([cnt_t, latents]), t, i, kv_t)[f:]
         latents = schedule.step(eps, t, latents, n)
     return latents
+
+
+def style_transfer_rf_steps(
+    denoise3: Callable,
+    content_chunk,
+    style_chunk,
+    latents,
+    steps,
+    s_curr,
+    s_next,
+    etas,
+    img_latents,
+    schedule: FlowMatchSchedule,
+    cfg: StyleTransferConfig,
+    mask=None,
+    singleton: bool = False,
+    solo: bool = False,
+):
+    """A contiguous segment of the SD3 stylization loop with the
+    controlled-velocity pull toward ``img_latents`` (custom_pipeline.py:
+    279-334); steps/sigma pairs/etas of length K, trajectory chunks
+    ``[K, F|1, h, w, C]``.
+
+    Denoiser layouts:
+      * default: 3-branch — ``denoise3([3F], t, i)``;
+      * ``singleton``: 2-branch [content | stylized] —
+        ``denoise3([2F], t, i, style_latent)`` with ``style_chunk``
+        ``[K, 1, h, w, C]``; the denoiser runs the single-frame style forward
+        (capture) and injects its K/V (exact: style frames are identical);
+      * ``solo``: stylized-only — ``denoise3([F], t, i)`` — past the shift
+        window, where the content/style forwards are dead compute.
+    The AdaIN re-anchor uses the content latent under the mask (the
+    reference line reads an undefined variable there, custom_pipeline.py:
+    303; the SD semantics are the evident intent).
+    """
+    n = cfg.num_steps
+    f, h, w, _ = latents.shape
+    m = None if mask is None else _resize_mask(mask, h, w).to(latents.dtype)
+    target = img_latents.float()
+    scale = np.float32(schedule.cfg.num_train_timesteps)
+    for j, (i, sc, sn, eta) in enumerate(zip(steps, s_curr, s_next, etas)):
+        i, sc, sn = int(i), np.float32(sc), np.float32(sn)
+        cnt_t = content_chunk[j].to(latents.dtype)
+        sty_t = style_chunk[j].to(latents.dtype)
+        if m is not None and _le(i, cfg.blend_hi * n):
+            latents = (1.0 - m) * latents + m * cnt_t
+        # SD3's re-anchor window is closed at both ends (custom_pipeline.py:295)
+        if _le(cfg.adain_lo * n, i) and _le(i, cfg.adain_hi * n):
+            anchored = latent_adain_sd3(latents, sty_t)
+            if m is not None:
+                anchored = (1.0 - m) * anchored + m * cnt_t
+            latents = anchored.to(latents.dtype)
+
+        t = float(sc * scale)
+        if solo:
+            v = denoise3(latents, t, i)
+        elif singleton:
+            v = denoise3(torch.cat([cnt_t, latents]), t, i, sty_t)[f:]
+        else:
+            v = denoise3(torch.cat([cnt_t, sty_t, latents]), t, i)[2 * f:]
+        x32 = latents.float()
+        v = v.float()
+        v = v + float(np.float32(eta)) * (-(target - x32) / float(sc) - v)
+        latents = (x32 + float(sn - sc) * v).to(latents.dtype)
+    return latents
+
+
+def style_transfer_rf(denoise3: Callable, content_traj_rev, style_traj_rev, init_latents,
+                      img_latents, schedule: FlowMatchSchedule, cfg: StyleTransferConfig,
+                      eta_values, mask=None, mu: Optional[float] = None):
+    """The whole SD3 stylization loop, 3-branch (see
+    :func:`style_transfer_rf_steps`)."""
+    n = cfg.num_steps
+    sigmas = schedule.sigmas(n, mu=mu)
+    return style_transfer_rf_steps(
+        denoise3, content_traj_rev[:n], style_traj_rev[:n], init_latents, range(n),
+        sigmas[:-1], sigmas[1:], np.asarray(eta_values, np.float32), img_latents, schedule,
+        cfg, mask=mask)

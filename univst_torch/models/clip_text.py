@@ -1,7 +1,8 @@
 """CLIP text encoder + tokenizer — port of ``univst_tpu/models/clip_text.py``.
 
 The SD runners build ``CLIPTextModel`` + ``CLIPTokenizer``
-(src/sd/run_content_inversion_sd.py:39-40). Attribute names follow
+(src/sd/run_content_inversion_sd.py:39-40); SD3 adds CLIP-L with its
+projection and the OpenCLIP bigG encoder (text_encoder_2). Attribute names follow
 transformers' ``CLIPTextModel`` keys (``text_model.*``), so its checkpoints
 load with ``strict=True``. Every prompt the reference CLIs encode is the
 empty string, which the tokenizer handles without vocab files.
@@ -41,6 +42,16 @@ class CLIPTextConfig:
     def sd21(**kw) -> "CLIPTextConfig":
         return CLIPTextConfig(hidden_size=1024, num_layers=23, num_heads=16,
                               intermediate_size=4096, hidden_act="gelu", **kw)
+
+    @staticmethod
+    def sd3_clip_l(**kw) -> "CLIPTextConfig":
+        return CLIPTextConfig(projection_dim=768, **kw)
+
+    @staticmethod
+    def sd3_clip_g(**kw) -> "CLIPTextConfig":
+        return CLIPTextConfig(hidden_size=1280, num_layers=32, num_heads=20,
+                              intermediate_size=5120, hidden_act="gelu", projection_dim=1280,
+                              **kw)
 
     @staticmethod
     def tiny(**kw) -> "CLIPTextConfig":
@@ -129,9 +140,16 @@ class CLIPTextTransformer(nn.Module):
 
 
 class CLIPTextModel(nn.Module):
-    """Returns (hidden_state, pooled) like transformers' CLIPTextModel:
-    the final-LayerNormed last layer, and its state at the first EOS
-    (projected when ``projection_dim`` is set)."""
+    """Returns (hidden_state, pooled) like transformers'
+    CLIPTextModel[WithProjection].
+
+    ``hidden_state_index`` indexes the ``output_hidden_states`` list
+    (embeddings output + each layer's output, no final LayerNorm): ``None``
+    returns the final-LayerNormed last layer (what SD-1.5/2.1 consume),
+    ``-2`` the penultimate un-normed state that diffusers' SD3
+    ``encode_prompt`` takes (``clip_skip=k`` -> ``-(k + 2)``). The pooled
+    output is always the final-normed state at the first EOS (projected when
+    ``projection_dim`` is set)."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
@@ -140,17 +158,19 @@ class CLIPTextModel(nn.Module):
         if cfg.projection_dim is not None:
             self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, hidden_state_index: Optional[int] = None):
         tm = self.text_model
         x = tm.embeddings(input_ids)
+        hidden_states = [x]
         for layer in tm.encoder.layers:
             x = layer(x)
+            hidden_states.append(x)
         x = tm.final_layer_norm(x)
         eos_pos = (input_ids == EOS_TOKEN).int().argmax(dim=1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eos_pos]
         if self.cfg.projection_dim is not None:
             pooled = self.text_projection(pooled)
-        return x, pooled
+        return (x if hidden_state_index is None else hidden_states[hidden_state_index]), pooled
 
 
 class Tokenizer:
@@ -165,7 +185,8 @@ class Tokenizer:
       only with synthetic weights — a one-time notice says so).
     """
 
-    def __init__(self, hf_dir: Optional[str] = None):
+    def __init__(self, hf_dir: Optional[str] = None, max_len: int = MAX_LEN):
+        self.max_len = max_len
         self._bpe = None
         self._warned = False
         if hf_dir is not None:
@@ -186,6 +207,6 @@ class Tokenizer:
                       "--pretrained_model_path for real-checkpoint token ids)", flush=True)
                 self._warned = True
         if self._bpe is not None:
-            return self._bpe(prompts, max_len=MAX_LEN)
-        row = [BOS_TOKEN, EOS_TOKEN] + [EOS_TOKEN] * (MAX_LEN - 2)
+            return self._bpe(prompts, max_len=self.max_len)
+        row = [BOS_TOKEN, EOS_TOKEN] + [EOS_TOKEN] * (self.max_len - 2)
         return np.asarray([row for _ in prompts], np.int32)

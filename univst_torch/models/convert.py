@@ -9,8 +9,10 @@ Two directions meet here:
     converters: linear ``[in, out]`` -> ``[out, in]``, NHWC conv
     ``[kh, kw, in, out]`` -> ``[out, in, kh, kw]``.
   * :func:`load_pretrained` reads a diffusers-layout checkpoint directory
-    (``unet/``, ``vae/``, ``text_encoder/``) and loads it with
-    ``strict=True``, so a missing or unexpected key fails loudly.
+    (``unet/``, ``vae/``, ``text_encoder/``; for SD3 ``transformer/``,
+    ``vae/``, ``text_encoder/``, ``text_encoder_2/``, ``text_encoder_3/``)
+    and loads it with ``strict=True``, so a missing or unexpected key fails
+    loudly.
 """
 
 from __future__ import annotations
@@ -228,6 +230,73 @@ def flax_clip_to_state_dict(params: Mapping, cfg) -> Dict[str, np.ndarray]:
     return e.out
 
 
+def flax_mmdit_to_state_dict(params: Mapping, cfg) -> Dict[str, np.ndarray]:
+    """The JAX ``MMDiT`` params as a diffusers ``SD3Transformer2DModel``
+    state dict. ``pos_embed.pos_embed`` is written as zeros, as
+    ``synth_ckpt.synth_mmdit`` writes it: both packages recompute the fixed
+    table and ignore the stored one."""
+    e = _Emitter(params)
+    k = e.leaf("patch_proj/kernel")  # [p*p*C, D] over (p, p, C)-flattened patches
+    d = k.shape[1]
+    p = cfg.patch_size
+    e.put("pos_embed.proj.weight", np.transpose(k.reshape(p, p, -1, d), (3, 2, 0, 1)))
+    e.put("pos_embed.proj.bias", e.leaf("patch_proj/bias"))
+    e.put("pos_embed.pos_embed", np.zeros((1, cfg.pos_embed_max_size**2, d), np.float32))
+    for emb in ("timestep_embedder", "text_embedder"):
+        for lin in ("linear_1", "linear_2"):
+            e.linear(f"time_text_embed.{emb}.{lin}", f"{emb}/{lin}")
+    e.linear("context_embedder", "context_embedder")
+
+    def qk_norms(src, dst, names):
+        if cfg.qk_norm == "rms":
+            for nm in names:
+                e.put(f"{src}.{nm}.weight", e.leaf(f"{dst}/{nm}/scale"))
+
+    for i in range(cfg.num_layers):
+        s, b = f"transformer_blocks.{i}", f"block_{i}"
+        pre_only = i == cfg.num_layers - 1
+        e.linear(f"{s}.norm1.linear", f"{b}/norm1/linear")
+        if i in cfg.dual_attention_layers:
+            for q in ("to_q", "to_k", "to_v"):
+                e.linear(f"{s}.attn2.{q}", f"{b}/attn2/{q}")
+            e.linear(f"{s}.attn2.to_out.0", f"{b}/attn2/to_out")
+            qk_norms(f"{s}.attn2", f"{b}/attn2", ("norm_q", "norm_k"))
+        e.linear(f"{s}.norm1_context.linear", f"{b}/norm1_context/linear")
+        for q in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj"):
+            e.linear(f"{s}.attn.{q}", f"{b}/attn/{q}")
+        e.linear(f"{s}.attn.to_out.0", f"{b}/attn/to_out")
+        if not pre_only:
+            e.linear(f"{s}.attn.to_add_out", f"{b}/attn/to_add_out")
+        qk_norms(f"{s}.attn", f"{b}/attn", ("norm_q", "norm_k", "norm_added_q", "norm_added_k"))
+        for ff in ("ff",) if pre_only else ("ff", "ff_context"):
+            e.linear(f"{s}.{ff}.net.0.proj", f"{b}/{ff}/fc1")
+            e.linear(f"{s}.{ff}.net.2", f"{b}/{ff}/fc2")
+    e.linear("norm_out.linear", "norm_out_linear")
+    e.linear("proj_out", "proj_out")
+    return e.out
+
+
+def flax_t5_to_state_dict(params: Mapping, cfg) -> Dict[str, np.ndarray]:
+    """The JAX ``T5Encoder`` params as a transformers ``T5EncoderModel``
+    state dict (the embedding under both of its tied names)."""
+    e = _Emitter(params)
+    emb = e.leaf("token_embedding/embedding")
+    e.put("shared.weight", emb)
+    e.put("encoder.embed_tokens.weight", emb)
+    e.put("encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight",
+          e.leaf("rel_bias"))
+    for i in range(cfg.num_layers):
+        s = f"encoder.block.{i}"
+        for q in ("q", "k", "v", "o"):
+            e.linear(f"{s}.layer.0.SelfAttention.{q}", f"layer_{i}_{q}", bias=False)
+        e.put(f"{s}.layer.0.layer_norm.weight", e.leaf(f"layer_{i}_norm_attn/scale"))
+        for src, dst in (("wi_0", "wi0"), ("wi_1", "wi1"), ("wo", "wo")):
+            e.linear(f"{s}.layer.1.DenseReluDense.{src}", f"layer_{i}_{dst}", bias=False)
+        e.put(f"{s}.layer.1.layer_norm.weight", e.leaf(f"layer_{i}_norm_ff/scale"))
+    e.put("encoder.final_layer_norm.weight", e.leaf("final_norm/scale"))
+    return e.out
+
+
 def to_torch_state_dict(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
@@ -250,12 +319,16 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     return sd.get("state_dict", sd)
 
 
-def load_pretrained(path: str, unet=None, vae=None, text_encoder=None) -> None:
-    """Load ``{path}/unet``, ``{path}/vae`` and ``{path}/text_encoder`` into
-    the given modules with ``strict=True`` (diffusers/transformers layout,
-    as ``scripts/make_synthetic_checkpoints.py`` writes it). A module whose
-    folder is missing raises."""
-    for sub, module in (("unet", unet), ("vae", vae), ("text_encoder", text_encoder)):
+def load_pretrained(path: str, unet=None, vae=None, text_encoder=None, transformer=None,
+                    text_encoder_2=None, text_encoder_3=None) -> None:
+    """Load each given module from its diffusers subfolder of ``path``
+    (``unet``, ``vae``, ``text_encoder``; SD3: ``transformer``,
+    ``text_encoder_2``, ``text_encoder_3``) with ``strict=True``
+    (diffusers/transformers layout, as ``scripts/make_synthetic_checkpoints.py``
+    writes it). A module whose folder is missing raises."""
+    for sub, module in (("unet", unet), ("vae", vae), ("text_encoder", text_encoder),
+                        ("transformer", transformer), ("text_encoder_2", text_encoder_2),
+                        ("text_encoder_3", text_encoder_3)):
         if module is None:
             continue
         weights = _find_weights(os.path.join(path, sub))

@@ -4,7 +4,8 @@
 The SD runners pair the SD UNet with the stable-video-diffusion VAE
 (src/sd/run_content_inversion_sd.py:41-42, diffusers
 ``AutoencoderKLTemporalDecoder``): a standard KL encoder and a decoder whose
-resnets mix a frame-axis resnet in through a learned alpha blender.
+resnets mix a frame-axis resnet in through a learned alpha blender. SD3
+uses the plain ``AutoencoderKL`` (no frame mixing) with 16 latent channels.
 
 Attribute names follow the diffusers keys. Public tensors keep the JAX
 layout: pixels and latents ``[F, H, W, C]`` (frames as batch); inside, the
@@ -39,6 +40,10 @@ class VAEConfig:
     def svd(**kw) -> "VAEConfig":
         """stabilityai/stable-video-diffusion-img2vid `vae` subfolder config."""
         return VAEConfig(temporal_decoder=True, **kw)
+
+    @staticmethod
+    def sd3(**kw) -> "VAEConfig":
+        return VAEConfig(latent_channels=16, scaling_factor=1.5305, shift_factor=0.0609, **kw)
 
     @staticmethod
     def tiny(**kw) -> "VAEConfig":
