@@ -11,12 +11,14 @@ none catches its own failure:
 2. Build: compiles every kernel source of ``univst_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together.
 3. Kernels against their plain PyTorch versions, in bf16 at the shapes the
-   main paths give them (and a small fp32 context / ragged Lq case each):
+   main paths give them (and small ragged bf16 and fp32 cases each):
    the error against a tolerance that follows the output's scale
    (``_err_over_tol``), a planted fault per kernel that the same check must
    reject, kernel / plain / library times (CUDA events) and the card's
-   least time for the work (bound). K1 is the head-major video flash
-   attention of the SD UNet, K2 the token-major one of the SD3 MMDiT.
+   least time for the work (bound: the largest of tensor-core FLOPs, the
+   exponentials at 16 per clock per SM, and bytes, from
+   ``univst_torch.attention.video_flash.work``). K1 is the head-major video
+   flash attention of the SD UNet, K2 the token-major one of the SD3 MMDiT.
 4. SD-1.5 path: ``SDVideoPipeline`` (SD-1.5 widths, 512 px, 16 frames,
    bf16, seeded random weights) through content inversion with feature
    capture, single-frame style inversion, mask propagation, stylization
@@ -45,6 +47,7 @@ exits non-zero. ``--steps`` (SD-1.5) defaults to 30 and ``--sd3_steps`` to
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -55,6 +58,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12    # H100 SXM fp32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+EXP_PER_CLOCK = 16   # MUFU.EX2 results per clock per SM (Hopper)
 TPU_KERNEL = "univst_tpu/attention/pallas_attention.py:193"
 TPU_KERNEL_FOLDED = "univst_tpu/attention/pallas_attention.py:546"
 SOURCE = "univst_torch/csrc/video_flash_attention.cu"
@@ -80,12 +84,22 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _nvidia_smi() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+def _nvidia_smi(query: str = "name,power.limit") -> str:
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
     if res.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {res.stderr}")
     return res.stdout.strip().splitlines()[0]
+
+
+@functools.lru_cache(maxsize=1)
+def _exp_rate() -> float:
+    """Exponentials per second: 16 per clock on each SM at the card's
+    maximum SM clock."""
+    import torch
+
+    mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
+    return EXP_PER_CLOCK * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
 def phase_device():
@@ -93,6 +107,8 @@ def phase_device():
 
     smi = _nvidia_smi()
     print(f"[device] {smi}")
+    print(f"[device] exponential unit: {_exp_rate():.4g}/s (16 per clock per SM at "
+          f"{_nvidia_smi('clocks.max.sm')})")
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     return smi
@@ -144,7 +160,7 @@ def _vfa_case(b, f, h, l, dh, idx, dtype, lq=None, lc=None, ctx_valid=None, reps
 
     from univst_torch.attention.ops import cross_frame_kv
     from univst_torch.attention.video_flash import (
-        slot_tables, video_flash_attention, video_flash_attention_plain,
+        video_flash_attention, video_flash_attention_plain,
     )
 
     lq = l if lq is None else lq
@@ -192,28 +208,31 @@ def _vfa_case(b, f, h, l, dh, idx, dtype, lq=None, lc=None, ctx_valid=None, reps
 
         qh, ke, ve = heads(q), expand(k), expand(v)
         library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qh, ke, ve), reps)
-    _, mult = slot_tables(idx, f)
-    kept = int((mult > 0).sum())  # distinct source frames, summed over targets
-    elt = q.element_size()
-    flops = 4.0 * lq * dh * (l * kept + (ctx_valid or 0) * f) * b * h
-    # q read, out written, k/v read once; the kernel reads ctx_valid rows of ctx
-    nbytes = elt * (2 * q.numel() + k.numel() + v.numel()
-                    + (2 * b * f * h * ctx_valid * dh if lc else 0))
-    bound_ms, bound_by = _bound(flops, nbytes, dtype)
     case = dict(shape=[b, f, h, lq, l, dh], indices=list(idx), dtype=str(dtype).split(".")[-1],
                 ctx=[lc, ctx_valid] if lc else None, max_abs_err=err, err_over_tol=ratio,
                 planted_err_over_tol=planted, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                **_bound([b, f, h, lq, l, dh], idx, ctx_valid or 0, dtype))
     print(f"[kernel] {json.dumps(case)}", flush=True)
     return case
 
 
-def _bound(flops: float, nbytes: float, dtype):
+def _bound(shape, idx, ctx_valid: int, dtype) -> dict:
+    """The card's least time for one call: the largest of its tensor FLOPs at
+    the peak rate of ``dtype``, its exponentials at 16 per clock per SM, and
+    its bytes at the memory rate. ``bound_by`` is ``operations`` when either
+    operation term wins (``bound_unit`` says which: ``tensor`` or ``exp``)
+    and ``bytes`` otherwise."""
     import torch
 
-    t_ops = flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32) * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    from univst_torch.attention.video_flash import work
+
+    w = work(shape, idx, ctx_valid, itemsize=torch.finfo(dtype).bits // 8)
+    terms = {"tensor": w.flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32) * 1e3,
+             "exp": w.exps / _exp_rate() * 1e3, "bytes": w.bytes / PEAK_BYTES * 1e3}
+    unit = max(terms, key=terms.get)
+    return dict(bound_ms=terms[unit], bound_by="bytes" if unit == "bytes" else "operations",
+                bound_unit=unit, tensor_ms=terms["tensor"], exp_ms=terms["exp"],
+                bytes_ms=terms["bytes"])
 
 
 def _vfa_tokens_case(b, f, h, lq, l, dh, idx, dtype, lc=None, reps=3, plant=False):
@@ -228,7 +247,7 @@ def _vfa_tokens_case(b, f, h, lq, l, dh, idx, dtype, lc=None, reps=3, plant=Fals
 
     from univst_torch.attention.ops import cross_frame_kv_heads
     from univst_torch.attention.video_flash import (
-        slot_tables, video_flash_attention_tokens, video_flash_attention_tokens_plain,
+        video_flash_attention_tokens, video_flash_attention_tokens_plain,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(lq * dh + len(idx))
@@ -273,17 +292,10 @@ def _vfa_tokens_case(b, f, h, lq, l, dh, idx, dtype, lc=None, reps=3, plant=Fals
         ve = torch.cat([ve, heads(kw["ctx_v"])], dim=2)
     library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qh, ke, ve), reps)
     del qh, ke, ve
-    _, mult = slot_tables(idx, f)
-    kept = int((mult > 0).sum())  # distinct source frames, summed over targets
-    flops = 4.0 * b * h * lq * dh * (l * kept + (lc or 0) * f)
-    # q read, out written, k/v and the valid ctx rows read once
-    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel()
-                                 + (2 * b * f * lc * h * dh if lc else 0))
-    bound_ms, bound_by = _bound(flops, nbytes, dtype)
     case = dict(shape=[b, f, h, lq, l, dh], indices=list(idx), dtype=str(dtype).split(".")[-1],
                 ctx=[lc, lc] if lc else None, max_abs_err=err, err_over_tol=ratio,
                 planted_err_over_tol=planted, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                **_bound([b, f, h, lq, l, dh], idx, lc or 0, dtype))
     print(f"[kernel] {json.dumps(case)}", flush=True)
     return case
 
@@ -299,6 +311,8 @@ def phase_kernels():
         _vfa_case(1, 16, 8, 1024, 80, (-1, 0, "first"), bf),   # 32x32 level, inversion
         _vfa_case(2, 16, 8, 1024, 80, (-1, "first"), bf),      # 32x32 level, PnP set, B=2
         _vfa_case(1, 4, 2, 256, 40, ("first", -1, 0), bf, lq=300, lc=200, ctx_valid=77),
+        # ragged: Lq 129, L 200 (not whole 64-key tiles at dh=80), 5 valid ctx rows
+        _vfa_case(1, 3, 2, 200, 80, ("first", -1, 0), bf, lq=129, lc=20, ctx_valid=5),
         _vfa_case(1, 4, 2, 256, 64, ("first", -1, 0), torch.float32, lq=200, lc=90,
                   ctx_valid=77),
     ]
@@ -309,6 +323,7 @@ def phase_kernels():
         _vfa_tokens_case(2, 16, 24, 4429, 4096, 64, idx, bf, lc=333, plant=True),  # 2-branch
         _vfa_tokens_case(1, 16, 24, 4429, 4096, 64, idx, bf, lc=333),  # inversion, solo phase
         _vfa_tokens_case(2, 16, 24, 4096, 4096, 64, idx, bf),  # SD3.5-M dual attention
+        _vfa_tokens_case(1, 3, 2, 333, 200, 64, idx, bf, lc=20),  # ragged Lq, L and ctx
         _vfa_tokens_case(1, 4, 3, 300, 256, 64, idx, torch.float32, lc=77),  # ragged Lq, fp32
     ]
     _sync()
@@ -559,6 +574,8 @@ def _entry(name, replaces, launches, cases, main_case):
                 planted_err_over_tol=main_case["planted_err_over_tol"],
                 ms=main_case["ms"], plain_ms=main_case["plain_ms"],
                 bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+                bound_unit=main_case["bound_unit"], tensor_ms=main_case["tensor_ms"],
+                exp_ms=main_case["exp_ms"], bytes_ms=main_case["bytes_ms"],
                 library_ms=main_case["library_ms"], shape=main_case["shape"], cases=cases)
 
 

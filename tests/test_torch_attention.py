@@ -127,7 +127,7 @@ def test_video_flash_plain_ctx_and_lq_match_pallas(dh, lc, ctx_valid, lq):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("bad", ["dh", "dtype", "contiguous", "indices"])
+@pytest.mark.parametrize("bad", ["dh", "dtype", "contiguous", "indices", "scale"])
 def test_video_flash_rejects_what_the_kernel_does_not_take(bad):
     q = torch.zeros(1, 2, 1, 64, 40)
     if bad == "dh":
@@ -138,4 +138,4 @@ def test_video_flash_rejects_what_the_kernel_does_not_take(bad):
         q = torch.zeros(1, 2, 1, 40, 64).transpose(3, 4)
     idx = () if bad == "indices" else (-1, "first")
     with pytest.raises((ValueError, TypeError)):
-        video_flash_attention(q, q, q, idx)
+        video_flash_attention(q, q, q, idx, sm_scale=0.0 if bad == "scale" else None)

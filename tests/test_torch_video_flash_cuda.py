@@ -44,3 +44,65 @@ def test_video_flash_cuda_kernel_matches_plain(dtype, indices):
     else:
         atol, rtol = 0.02 * want.pow(2).mean().sqrt().item(), 2.0**-6
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+# Tile edges of the bf16 kernel (128 query rows per block, 128-key tiles,
+# 64-column atoms of dh): Lq below and not a multiple of 128, L not a
+# multiple of 128, ctx_valid below one tile, dh 40/64/80/128, B*F*H = 1,
+# and a frame whose slots all name one source (one kept slot of weight 2).
+EDGES = [
+    # b, f, h, lq, l, dh, (lc, ctx_valid) or None, indices
+    (1, 4, 2, 100, 256, 40, (90, 77), (-1, 0, "first")),
+    (1, 4, 2, 300, 200, 64, None, (-1, "first")),
+    (1, 3, 1, 129, 130, 80, (20, 5), ("first", -1, 0)),
+    (1, 1, 1, 77, 64, 128, (40, 33), (-1, "first")),
+    (2, 2, 3, 256, 384, 128, None, (-1, 0, "first")),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,h,lq,l,dh,ctx,indices", EDGES)
+def test_video_flash_cuda_kernel_tile_edges(b, f, h, lq, l, dh, ctx, indices):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    gen = torch.Generator(device="cuda").manual_seed(lq + dh)
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v = r(b, f, h, lq, dh), r(b, f, h, l, dh), r(b, f, h, l, dh)
+    kw = {}
+    if ctx:
+        kw = dict(ctx_k=r(b, f, h, ctx[0], dh), ctx_v=r(b, f, h, ctx[0], dh), ctx_valid=ctx[1])
+    got = video_flash_attention(q, k, v, indices, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    want = video_flash_attention_plain(q, k, v, indices, **kw).float()
+    atol, rtol = 0.02 * want.pow(2).mean().sqrt().item(), 2.0**-6
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+# Logits that grow along the keys, so a row's max keeps outgrowing the
+# running max of earlier tiles (by more than the 2^8 the kernel lets it lag,
+# and, in the step case, by more than an fp32 exponent can hold): the
+# kernel's path that recomputes a tile's logits must take over.
+@pytest.mark.cuda
+@pytest.mark.parametrize("ramp", ["linear", "step"])
+def test_video_flash_cuda_kernel_growing_logits(ramp):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, f, h, lq, l, dh = 1, 3, 2, 200, 384, 64
+    q = torch.randn(b, f, h, lq, dh, generator=gen, device="cuda")
+    k = torch.randn(b, f, h, l, dh, generator=gen, device="cuda")
+    v = torch.randn(b, f, h, l, dh, generator=gen, device="cuda")
+    if ramp == "linear":
+        scale = torch.linspace(0.5, 12.0, l, device="cuda")
+    else:
+        scale = torch.where(torch.arange(l, device="cuda") < 128, 0.1, 100.0)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k * scale[:, None], v))
+    got = video_flash_attention(q, k, v, ("first", -1, 0))
+    torch.cuda.synchronize()
+    want = video_flash_attention_plain(q, k, v, ("first", -1, 0)).float()
+    atol, rtol = 0.02 * want.pow(2).mean().sqrt().item(), 2.0**-6
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)

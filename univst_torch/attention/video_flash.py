@@ -11,17 +11,21 @@ plain PyTorch versions, in two layouts.
   the same layout: no head transpose on either side.
 
 Each target frame attends the concatenation of the K/V of its source frames
-(``resolve_frame_indices``), read unexpanded. What bounds it on the H100 is
-tensor-core arithmetic — 4 * Lq * dh * L FLOPs per kept slot and head,
-about 2 ms at the SD-1.5 64x64 level — not bytes: each block keeps its query
-tile and running softmax on chip and streams the source tiles past it, so
-no expanded K/V and no logits reach device memory. bf16 runs on the tensor
-cores (mma.sync, fp32 accumulation), with dh padded to the MMA depth in
-shared memory only; fp32 keeps exact fp32 arithmetic on the CUDA cores.
-Duplicate slots are skipped and their mass folded into the kept slot's
-multiplicity, which cuts the FLOPs of the first two frames. Both kernels are
-one templated body in ``univst_torch/csrc/video_flash_attention.cu`` that
-differs only in addressing, with a C entry point each.
+(``resolve_frame_indices``), read unexpanded. Two units bound it on the
+H100, not bytes (:func:`work` counts all three): the tensor cores, at
+4 * Lq * dh FLOPs per key, and the exponential unit, at one exponential per
+key and query (16 per clock per SM). At dh = 40 (SD-1.5's 64x64 level) the
+exponentials are the floor, at dh = 64 (SD3) the two tie. Each block keeps
+its query tile and running softmax on chip and streams the source tiles
+past it, so no expanded K/V and no logits reach device memory. bf16 runs on
+Hopper's tensor cores (TMA loads into a ring of K/V tiles, wgmma, fp32
+accumulation, the softmax of one warpgroup overlapping the products of the
+other), with dh padded to the MMA depth on chip only; fp32 keeps exact fp32
+arithmetic on the CUDA cores. Duplicate slots are skipped and their mass
+folded into the kept slot's multiplicity, which cuts the work of the first
+two frames. Both kernels are one templated body in
+``univst_torch/csrc/video_flash_attention.cu`` that differs only in
+addressing, with a C entry point each.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. ``video_flash_attention.launches`` and
@@ -32,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,18 +61,47 @@ def slot_tables(frame_indices: Sequence, num_frames: int):
     return srcs.astype(np.int32), mult.astype(np.int32)
 
 
+class Work(NamedTuple):
+    """What one call needs: tensor-core FLOPs, exponentials, bytes moved."""
+
+    flops: float
+    exps: float
+    bytes: float
+
+
+def work(shape: Sequence[int], frame_indices: Sequence, ctx_valid: int = 0,
+         itemsize: int = 2) -> Work:
+    """The work of one call, from shapes alone, for either layout.
+
+    ``shape`` is ``(B, F, H, Lq, L, dh)``. Each query meets the keys of its
+    frame's kept slots (duplicates are elided) and ``ctx_valid`` context
+    keys: 4 * dh FLOPs (Q K^T and P V) and one exponential per meeting. Bytes
+    count q read and the output written once, the K/V of every frame that is
+    some frame's source, and the valid context rows, each read once.
+    """
+    b, f, h, lq, l, dh = (int(x) for x in shape)
+    srcs, mult = slot_tables(frame_indices, f)
+    keys = l * int((mult > 0).sum()) + ctx_valid * f  # summed over target frames
+    exps = float(b * h * lq) * keys
+    used = len(np.unique(srcs))  # source frames whose K/V is read
+    nbytes = itemsize * b * h * dh * (2 * f * lq + 2 * used * l + 2 * f * ctx_valid)
+    return Work(4.0 * dh * exps, exps, float(nbytes))
+
+
 @functools.lru_cache(maxsize=64)
 def _device_tables(frame_indices: tuple, num_frames: int, device: torch.device):
     srcs, mult = slot_tables(frame_indices, num_frames)
     return (torch.from_numpy(srcs).to(device), torch.from_numpy(mult).to(device))
 
 
-def _check(q, k, v, frame_indices, ctx_k, ctx_v, ctx_valid, seq_axis: int = 3):
-    """Shapes, types, devices and contiguity the kernels take; ``seq_axis``
-    is 3 head-major (``[B, F, H, L, dh]``) and 2 token-major
+def _check(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid, seq_axis: int = 3):
+    """Shapes, types, devices, contiguity and scale the kernels take;
+    ``seq_axis`` is 3 head-major (``[B, F, H, L, dh]``) and 2 token-major
     (``[B, F, L, H, dh]``)."""
     if not frame_indices:
         raise ValueError("video flash attention needs a non-empty frame index set")
+    if sm_scale is not None and not sm_scale > 0:
+        raise ValueError(f"sm_scale must be positive, got {sm_scale}")
     if q.dim() != 5 or k.dim() != 5 or k.shape != v.shape:
         raise ValueError(f"want 5-d q and k/v of one shape; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -173,7 +206,7 @@ def video_flash_attention(q, k, v, frame_indices: Sequence, sm_scale: Optional[f
     """
     if ctx_k is not None and ctx_valid is None:
         ctx_valid = ctx_k.shape[3]
-    _check(q, k, v, frame_indices, ctx_k, ctx_v, ctx_valid)
+    _check(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid)
     if q.device.type == "cpu":
         return video_flash_attention_plain(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v,
                                            ctx_valid)
@@ -222,7 +255,7 @@ def video_flash_attention_tokens(q, k, v, frame_indices: Sequence,
     """
     if ctx_k is not None and ctx_valid is None:
         ctx_valid = ctx_k.shape[2]
-    _check(q, k, v, frame_indices, ctx_k, ctx_v, ctx_valid, seq_axis=2)
+    _check(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid, seq_axis=2)
     if q.device.type == "cpu":
         return video_flash_attention_tokens_plain(q, k, v, frame_indices, sm_scale, ctx_k,
                                                   ctx_v, ctx_valid)
