@@ -16,9 +16,10 @@ none catches its own failure:
    (``_err_over_tol``), a planted fault per kernel that the same check must
    reject, kernel / plain / library times (CUDA events) and the card's
    least time for the work (bound: the largest of tensor-core FLOPs, the
-   exponentials at 16 per clock per SM, and bytes, from
-   ``univst_torch.attention.video_flash.work``). K1 is the head-major video
-   flash attention of the SD UNet, K2 the token-major one of the SD3 MMDiT.
+   exponentials on the MUFU and the FMA pipe together, and bytes, from
+   ``univst_torch.attention.video_flash.work``; each term on a ``[bound]``
+   line). K1 is the head-major video flash attention of the SD UNet, K2 the
+   token-major one of the SD3 MMDiT.
 4. SD-1.5 path: ``SDVideoPipeline`` (SD-1.5 widths, 512 px, 16 frames,
    bf16, seeded random weights) through content inversion with feature
    capture, single-frame style inversion, mask propagation, stylization
@@ -58,7 +59,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12    # H100 SXM fp32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
-EXP_PER_CLOCK = 16   # MUFU.EX2 results per clock per SM (Hopper)
+MUFU_EXP_PER_CLOCK = 16  # MUFU.EX2 results per clock per SM (Hopper)
+FMA_PER_CLOCK = 128  # fp32 FMA-pipe operations per clock per SM
+FMA_OPS_PER_EXP = 6  # the kernel's cubic 2^x (ex2_fma): 3 adds to round, 3 FMAs
 TPU_KERNEL = "univst_tpu/attention/pallas_attention.py:193"
 TPU_KERNEL_FOLDED = "univst_tpu/attention/pallas_attention.py:546"
 SOURCE = "univst_torch/csrc/video_flash_attention.cu"
@@ -93,13 +96,20 @@ def _nvidia_smi(query: str = "name,power.limit") -> str:
 
 
 @functools.lru_cache(maxsize=1)
-def _exp_rate() -> float:
-    """Exponentials per second: 16 per clock on each SM at the card's
-    maximum SM clock."""
+def _sm_clocks() -> float:
+    """SM clocks per second summed over the card: SM count x the maximum
+    SM clock."""
     import torch
 
     mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
-    return EXP_PER_CLOCK * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+    return torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
+def _exp_rate() -> float:
+    """Exponentials per second on both units that can make them: the MUFU at
+    16 per clock per SM, and the FMA pipe at 128 operations per clock per SM
+    over the cubic's 6 (37.3 per clock per SM in all)."""
+    return (MUFU_EXP_PER_CLOCK + FMA_PER_CLOCK / FMA_OPS_PER_EXP) * _sm_clocks()
 
 
 def phase_device():
@@ -107,8 +117,9 @@ def phase_device():
 
     smi = _nvidia_smi()
     print(f"[device] {smi}")
-    print(f"[device] exponential unit: {_exp_rate():.4g}/s (16 per clock per SM at "
-          f"{_nvidia_smi('clocks.max.sm')})")
+    print(f"[device] exponentials: {_exp_rate():.4g}/s on MUFU + FMA pipe, "
+          f"{MUFU_EXP_PER_CLOCK * _sm_clocks():.4g}/s on MUFU alone "
+          f"({_nvidia_smi('clocks.max.sm')})")
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     return smi
@@ -218,10 +229,12 @@ def _vfa_case(b, f, h, l, dh, idx, dtype, lq=None, lc=None, ctx_valid=None, reps
 
 def _bound(shape, idx, ctx_valid: int, dtype) -> dict:
     """The card's least time for one call: the largest of its tensor FLOPs at
-    the peak rate of ``dtype``, its exponentials at 16 per clock per SM, and
-    its bytes at the memory rate. ``bound_by`` is ``operations`` when either
-    operation term wins (``bound_unit`` says which: ``tensor`` or ``exp``)
-    and ``bytes`` otherwise."""
+    the peak rate of ``dtype``, its exponentials on the MUFU and the FMA pipe
+    together (``_exp_rate``), and its bytes at the memory rate. ``bound_by``
+    is ``operations`` when either operation term wins (``bound_unit`` says
+    which: ``tensor`` or ``exp``) and ``bytes`` otherwise. The terms, and
+    the exponentials' time on the MUFU alone, go on a ``[bound]`` line: they
+    are computed from shapes, not measured."""
     import torch
 
     from univst_torch.attention.video_flash import work
@@ -230,9 +243,12 @@ def _bound(shape, idx, ctx_valid: int, dtype) -> dict:
     terms = {"tensor": w.flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32) * 1e3,
              "exp": w.exps / _exp_rate() * 1e3, "bytes": w.bytes / PEAK_BYTES * 1e3}
     unit = max(terms, key=terms.get)
+    print("[bound] " + json.dumps(dict(
+        shape=list(shape), indices=list(idx), ctx_valid=ctx_valid, tensor_ms=terms["tensor"],
+        exp_ms=terms["exp"], mufu_exp_ms=w.exps / (MUFU_EXP_PER_CLOCK * _sm_clocks()) * 1e3,
+        bytes_ms=terms["bytes"])), flush=True)
     return dict(bound_ms=terms[unit], bound_by="bytes" if unit == "bytes" else "operations",
-                bound_unit=unit, tensor_ms=terms["tensor"], exp_ms=terms["exp"],
-                bytes_ms=terms["bytes"])
+                bound_unit=unit)
 
 
 def _vfa_tokens_case(b, f, h, lq, l, dh, idx, dtype, lc=None, reps=3, plant=False):
@@ -574,9 +590,8 @@ def _entry(name, replaces, launches, cases, main_case):
                 planted_err_over_tol=main_case["planted_err_over_tol"],
                 ms=main_case["ms"], plain_ms=main_case["plain_ms"],
                 bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-                bound_unit=main_case["bound_unit"], tensor_ms=main_case["tensor_ms"],
-                exp_ms=main_case["exp_ms"], bytes_ms=main_case["bytes_ms"],
-                library_ms=main_case["library_ms"], shape=main_case["shape"], cases=cases)
+                bound_unit=main_case["bound_unit"], library_ms=main_case["library_ms"],
+                shape=main_case["shape"], cases=cases)
 
 
 def main(argv=None) -> int:

@@ -19,67 +19,55 @@ from univst_torch.attention.video_flash import video_flash_attention, video_flas
 
 INDEX_SETS = [(-1, "first"), ("first", -1, 0), (-1, 0, "first")]
 
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("indices", INDEX_SETS)
-def test_video_flash_cuda_kernel_matches_plain(dtype, indices):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU form")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def r(*s):
-        return torch.randn(s, generator=gen, device="cuda").to(dtype)
-
-    q, k, v = r(1, 4, 2, 200, 40), r(1, 4, 2, 256, 40), r(1, 4, 2, 256, 40)
-    ck, cv = r(1, 4, 2, 90, 40), r(1, 4, 2, 90, 40)
-    before = video_flash_attention.launches
-    got = video_flash_attention(q, k, v, indices, ctx_k=ck, ctx_v=cv, ctx_valid=77)
-    torch.cuda.synchronize()
-    assert video_flash_attention.launches == before + 1
-    want = video_flash_attention_plain(q, k, v, indices, ctx_k=ck, ctx_v=cv,
-                                       ctx_valid=77).float()
-    if dtype == torch.float32:
-        atol, rtol = 1e-5, 1e-5
-    else:
-        atol, rtol = 0.02 * want.pow(2).mean().sqrt().item(), 2.0**-6
-    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
-
-
-# Tile edges of the bf16 kernel (128 query rows per block, 128-key tiles,
-# 64-column atoms of dh): Lq below and not a multiple of 128, L not a
-# multiple of 128, ctx_valid below one tile, dh 40/64/80/128, B*F*H = 1,
-# and a frame whose slots all name one source (one kept slot of weight 2).
+# b, f, h, lq, l, dh, (lc, ctx_valid) or None, indices
+BASE = [(1, 4, 2, 200, 256, 40, (90, 77), ind) for ind in INDEX_SETS]
+# Tile edges of the bf16 kernel (128 query rows per block; 192-key tiles at
+# dh <= 64 and 128-key tiles above; 64-column atoms of dh): Lq below and not
+# a multiple of 128, L not a multiple of the key tile, ctx_valid below one
+# tile, dh 40/64/80/128, B*F*H = 1, and a frame whose slots all name one
+# source (one kept slot of weight 2).
 EDGES = [
-    # b, f, h, lq, l, dh, (lc, ctx_valid) or None, indices
     (1, 4, 2, 100, 256, 40, (90, 77), (-1, 0, "first")),
     (1, 4, 2, 300, 200, 64, None, (-1, "first")),
     (1, 3, 1, 129, 130, 80, (20, 5), ("first", -1, 0)),
     (1, 1, 1, 77, 64, 128, (40, 33), (-1, "first")),
     (2, 2, 3, 256, 384, 128, None, (-1, 0, "first")),
 ]
+CASES = ([(torch.float32, *case) for case in BASE]
+         + [(torch.bfloat16, *case) for case in BASE + EDGES])
+
+
+def _assert_matches_plain(q, k, v, indices, **kw):
+    """One launch of the kernel, held to its plain version (the module's
+    tolerances)."""
+    before = video_flash_attention.launches
+    got = video_flash_attention(q, k, v, indices, **kw)
+    torch.cuda.synchronize()
+    assert video_flash_attention.launches == before + 1
+    assert got.shape == q.shape
+    want = video_flash_attention_plain(q, k, v, indices, **kw).float()
+    if q.dtype == torch.float32:
+        atol, rtol = 1e-5, 1e-5
+    else:
+        atol, rtol = 0.02 * want.pow(2).mean().sqrt().item(), 2.0**-6
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,f,h,lq,l,dh,ctx,indices", EDGES)
-def test_video_flash_cuda_kernel_tile_edges(b, f, h, lq, l, dh, ctx, indices):
+@pytest.mark.parametrize("dtype,b,f,h,lq,l,dh,ctx,indices", CASES)
+def test_video_flash_cuda_kernel_matches_plain(dtype, b, f, h, lq, l, dh, ctx, indices):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU form")
     gen = torch.Generator(device="cuda").manual_seed(lq + dh)
 
     def r(*s):
-        return torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+        return torch.randn(s, generator=gen, device="cuda").to(dtype)
 
     q, k, v = r(b, f, h, lq, dh), r(b, f, h, l, dh), r(b, f, h, l, dh)
     kw = {}
     if ctx:
         kw = dict(ctx_k=r(b, f, h, ctx[0], dh), ctx_v=r(b, f, h, ctx[0], dh), ctx_valid=ctx[1])
-    got = video_flash_attention(q, k, v, indices, **kw)
-    torch.cuda.synchronize()
-    assert got.shape == q.shape
-    want = video_flash_attention_plain(q, k, v, indices, **kw).float()
-    atol, rtol = 0.02 * want.pow(2).mean().sqrt().item(), 2.0**-6
-    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+    _assert_matches_plain(q, k, v, indices, **kw)
 
 
 # Logits that grow along the keys, so a row's max keeps outgrowing the
@@ -101,8 +89,4 @@ def test_video_flash_cuda_kernel_growing_logits(ramp):
     else:
         scale = torch.where(torch.arange(l, device="cuda") < 128, 0.1, 100.0)
     q, k, v = (x.to(torch.bfloat16) for x in (q, k * scale[:, None], v))
-    got = video_flash_attention(q, k, v, ("first", -1, 0))
-    torch.cuda.synchronize()
-    want = video_flash_attention_plain(q, k, v, ("first", -1, 0)).float()
-    atol, rtol = 0.02 * want.pow(2).mean().sqrt().item(), 2.0**-6
-    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+    _assert_matches_plain(q, k, v, ("first", -1, 0))

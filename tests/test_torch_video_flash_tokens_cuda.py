@@ -9,7 +9,8 @@ tests/conftest.py, which sets up JAX:
 
 Shapes: a ragged merged q stream (Lq = L + 45, not a multiple of the 128-row
 tile), a context of 90 rows of which 77 are valid (not whole key tiles), and
-the no-context form of the SD3.5 dual attention; dh 64 as in SD3, and 32.
+the no-context form of the SD3.5 dual attention; dh 64 as in SD3, and 32;
+then the tile edges of the bf16 kernel (``EDGES``).
 
 Tolerances (those of ``chip_smoke.py``): 1e-5 absolute and relative in fp32
 (the same arithmetic up to summation order). In bf16, rtol 2**-6 (two bf16
@@ -27,22 +28,38 @@ from univst_torch.attention.video_flash import (
 
 INDEX_SETS = [("first", -1, 0), (-1, "first")]
 
+# b, f, h, lq, l, dh, (lc, ctx_valid) or None, indices
+BASE = [(2, 4, 3, 256 + 45, 256, dh, ctx, ind)
+        for dh, ctx in [(64, (90, 77)), (64, None), (32, (90, 77))] for ind in INDEX_SETS]
+# Tile edges of the bf16 kernel (128 query rows per block; 192-key tiles at
+# dh <= 64 and 128-key tiles above; 64-column atoms of dh): Lq below and not
+# a multiple of 128, L not a multiple of the key tile, ctx_valid below one
+# tile, dh 40/64/80/128, B*F*H = 1.
+EDGES = [
+    (1, 4, 3, 100, 256, 40, (90, 77), ("first", -1, 0)),
+    (1, 4, 2, 333, 200, 64, (20, 5), ("first", -1, 0)),
+    (2, 3, 2, 129, 130, 80, None, ("first", -1, 0)),
+    (1, 1, 1, 77, 64, 128, (40, 33), ("first", -1, 0)),
+    (1, 2, 5, 256, 384, 128, (333, 333), ("first", -1, 0)),
+]
+CASES = ([(torch.float32, *case) for case in BASE]
+         + [(torch.bfloat16, *case) for case in BASE + EDGES])
+
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("indices", INDEX_SETS)
-@pytest.mark.parametrize("dh,ctx", [(64, True), (64, False), (32, True)])
-def test_video_flash_tokens_cuda_kernel_matches_plain(dtype, indices, dh, ctx):
+@pytest.mark.parametrize("dtype,b,f,h,lq,l,dh,ctx,indices", CASES)
+def test_video_flash_tokens_cuda_kernel_matches_plain(dtype, b, f, h, lq, l, dh, ctx, indices):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU form")
-    gen = torch.Generator(device="cuda").manual_seed(dh)
+    gen = torch.Generator(device="cuda").manual_seed(lq + dh)
 
     def r(*s):
         return torch.randn(s, generator=gen, device="cuda").to(dtype)
 
-    b, f, h, l = 2, 4, 3, 256
-    q, k, v = r(b, f, l + 45, h, dh), r(b, f, l, h, dh), r(b, f, l, h, dh)
-    kw = dict(ctx_k=r(b, f, 90, h, dh), ctx_v=r(b, f, 90, h, dh), ctx_valid=77) if ctx else {}
+    q, k, v = r(b, f, lq, h, dh), r(b, f, l, h, dh), r(b, f, l, h, dh)
+    kw = {}
+    if ctx:
+        kw = dict(ctx_k=r(b, f, ctx[0], h, dh), ctx_v=r(b, f, ctx[0], h, dh), ctx_valid=ctx[1])
     before = video_flash_attention_tokens.launches
     got = video_flash_attention_tokens(q, k, v, indices, **kw)
     torch.cuda.synchronize()
@@ -53,39 +70,4 @@ def test_video_flash_tokens_cuda_kernel_matches_plain(dtype, indices, dh, ctx):
         atol, rtol = 1e-5, 1e-5
     else:
         atol, rtol = 0.02 * want.pow(2).mean().sqrt().item(), 2.0**-6
-    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
-
-
-# Tile edges of the bf16 kernel (128 query rows per block, 128-key tiles,
-# 64-column atoms of dh): Lq below and not a multiple of 128, L not a
-# multiple of 128, ctx_valid below one tile, dh 40/64/80/128, B*F*H = 1.
-EDGES = [
-    # b, f, h, lq, l, dh, (lc, ctx_valid) or None
-    (1, 4, 3, 100, 256, 40, (90, 77)),
-    (1, 4, 2, 333, 200, 64, (20, 5)),
-    (2, 3, 2, 129, 130, 80, None),
-    (1, 1, 1, 77, 64, 128, (40, 33)),
-    (1, 2, 5, 256, 384, 128, (333, 333)),
-]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,f,h,lq,l,dh,ctx", EDGES)
-def test_video_flash_tokens_cuda_kernel_tile_edges(b, f, h, lq, l, dh, ctx):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU form")
-    gen = torch.Generator(device="cuda").manual_seed(lq + dh)
-
-    def r(*s):
-        return torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
-
-    q, k, v = r(b, f, lq, h, dh), r(b, f, l, h, dh), r(b, f, l, h, dh)
-    kw = {}
-    if ctx:
-        kw = dict(ctx_k=r(b, f, ctx[0], h, dh), ctx_v=r(b, f, ctx[0], h, dh), ctx_valid=ctx[1])
-    got = video_flash_attention_tokens(q, k, v, ("first", -1, 0), **kw)
-    torch.cuda.synchronize()
-    assert got.shape == q.shape
-    want = video_flash_attention_tokens_plain(q, k, v, ("first", -1, 0), **kw).float()
-    atol, rtol = 0.02 * want.pow(2).mean().sqrt().item(), 2.0**-6
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)

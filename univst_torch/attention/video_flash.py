@@ -11,11 +11,13 @@ plain PyTorch versions, in two layouts.
   the same layout: no head transpose on either side.
 
 Each target frame attends the concatenation of the K/V of its source frames
-(``resolve_frame_indices``), read unexpanded. Two units bound it on the
-H100, not bytes (:func:`work` counts all three): the tensor cores, at
-4 * Lq * dh FLOPs per key, and the exponential unit, at one exponential per
-key and query (16 per clock per SM). At dh = 40 (SD-1.5's 64x64 level) the
-exponentials are the floor, at dh = 64 (SD3) the two tie. Each block keeps
+(``resolve_frame_indices``), read unexpanded. Two kinds of operation bound
+it on the H100, not bytes (:func:`work` counts all three): the tensor
+cores' 4 * Lq * dh FLOPs per key, and one exponential per key and query.
+The MUFU makes 16 exponentials per clock per SM; alone it would be the
+floor at dh = 40 (SD-1.5's 64x64 level) and come within 8% of the tensor
+cores at dh = 64 (SD3). With part of the exponentials on the FMA pipe the
+tensor cores are the floor at both. Each block keeps
 its query tile and running softmax on chip and streams the source tiles
 past it, so no expanded K/V and no logits reach device memory. bf16 runs on
 Hopper's tensor cores (TMA loads into a ring of K/V tiles, wgmma, fp32

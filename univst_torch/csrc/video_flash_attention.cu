@@ -17,18 +17,22 @@
 // over duplicated keys). An optional per-frame context K/V (ctx above) is one
 // more pass, limited to ctx_valid keys.
 //
-// What bounds it on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s, MUFU.EX2 at
-// 16 per clock per SM: 4.18e12/s at the 1980 MHz max clock of an NVIDIA
-// H100 80GB HBM3 at 700 W), per call at the main shapes
+// What bounds it on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s; exponentials
+// on the MUFU at 16 per clock per SM and on the FMA pipe at 128 operations
+// per clock per SM over the 6 of ex2_fma below: 37.3 per clock per SM in
+// all, 9.76e12/s at the 1980 MHz max clock of an NVIDIA H100 80GB HBM3 at
+// 700 W), per call at the main shapes
 // (univst_torch/attention/video_flash.py::work counts them):
 //   K1 [B=2, F=16, H=8, L=4096, dh=40], (-1, 0, 'first'), 45 kept slots:
-//      1.93e12 FLOPs -> 1.95 ms; 1.21e10 exponentials -> 2.89 ms; 0.34 GB
-//      -> 0.10 ms. The exponential unit is the floor.
+//      1.93e12 FLOPs -> 1.95 ms; 1.21e10 exponentials -> 1.24 ms (2.89 ms
+//      on the MUFU alone); 0.34 GB -> 0.10 ms. The tensor cores are the
+//      floor only if part of the exponentials leaves the MUFU.
 //   K2 [B=2, F=16, H=24, Lq=4429, L=4096, dh=64] + 333 ctx rows:
-//      1.03e13 FLOPs -> 10.44 ms; 4.03e10 exponentials -> 9.64 ms; 1.74 GB
-//      -> 0.52 ms. Tensor cores and exponentials tie.
+//      1.03e13 FLOPs -> 10.44 ms; 4.03e10 exponentials -> 4.13 ms (9.64 ms
+//      on the MUFU alone); 1.74 GB -> 0.52 ms. The tensor cores are the
+//      floor, with the MUFU alone within 8% of it.
 // Bytes are far below both, so the design keeps every K/V byte in L2 and
-// the tensor cores and the exponential unit busy at once:
+// the tensor cores and the exponential units busy at once:
 //   * launch order: the q tiles of one (b, f, h) row are adjacent block
 //     indices, so the blocks resident at once share a few rows' source K/V,
 //     which stays in the 50 MB L2 (row-major order streamed it from HBM on
@@ -58,7 +62,8 @@
 //     the running max without waiting for the tile's or rescaling O (the
 //     rare tile whose logits outgrow it by more than 8 is recomputed), and a
 //     quarter of them run as a cubic on the FMA pipe (FlashAttention-4's
-//     split).
+//     split; the other three quarters still take K1 2.17 ms of MUFU time,
+//     above its tensor floor).
 // The online softmax runs in base 2 in fp32 registers; the output is written
 // once, in the input type. fp32 inputs keep exact fp32 arithmetic on the
 // CUDA cores (16x16 threads, 4x4 logits each, one block per row and 64-query
@@ -370,7 +375,8 @@ __device__ __forceinline__ float ex2(float x) {
 
 // 2^x on the FMA pipe (FlashAttention-4's split of the exponentials): round
 // x to n + f, f in [-0.5, 0.5], a cubic for 2^f (relative error 1.0e-4,
-// a twentieth of a bf16 half-ulp) and n added to the exponent bits. x is
+// a twentieth of a bf16 half-ulp) and n added to the exponent bits: six
+// fp32 operations on the FMA pipe (three adds, three FMAs). x is
 // clamped to [-125, 126]: -inf gives 2^-125 in place of 0, a weight no
 // output can show, and a logit far above the running max still reads as
 // huge (the caller's check then recomputes the tile).
