@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SD-1.5 and SD3 workflows on one NVIDIA GPU.
+"""Drive the PyTorch port's SD-1.5, AnimateDiff-v2 and SD3 workflows on one
+NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps N] [--sd3_steps N]
+    python3 chip_smoke.py [--steps N] [--ad_steps N] [--sd3_steps N]
 
 Run from the root of a checkout, on a machine with a CUDA card. Phases, each
 ending in ``torch.cuda.synchronize()`` so a fault surfaces where it happens;
@@ -26,7 +27,23 @@ none catches its own failure:
    (style pre-pass, injected 2-branch phase, stylized-only phase) and the
    chunked temporal-VAE decode, plus the inversion -> reconstruction round
    trip. K1 must launch 10 times per 16-frame UNet forward, K2 never.
-5. SD3 path: ``SD3VideoPipeline`` at SD3-medium widths (24 blocks, 24 heads
+5. SD-1.5 fallback: the same pipeline and trajectories, stylized once off
+   the style-singleton path (capture-and-inject, what the transfer CLI
+   falls back to on a style trajectory whose frames differ), with the
+   content trajectory as the style. Per phase-1 step a 16-frame capture
+   forward and the injected 2-branch forward, per phase-2 step one
+   forward: K1 must launch 10 x (2 k1 + (n - k1)) times (k1 = the shift
+   window's end, 26 of 30 steps: 560), K2 never; the latents finite.
+6. AnimateDiff-v2 path: ``build_animatediff`` at full width (the SD-1.5 2D
+   UNet, 21 motion modules of 8 heads with a 24-frame position table, SVD
+   VAE, CLIP-L; bf16, seeded random weights, every motion module's
+   ``proj_out`` filled from seed 1 so the temporal path reaches the
+   result), 512 px, 16 frames: content inversion with EasyInv and the
+   feature captured, 16-frame style inversion, mask propagation,
+   capture-and-inject stylization from the raw content noise, chunked
+   decode, inversion -> reconstruction round trip. This backbone builds no
+   cross-frame K/V: K1 and K2 must launch 0 times.
+7. SD3 path: ``SD3VideoPipeline`` at SD3-medium widths (24 blocks, 24 heads
    of 64, T5-XXL, CLIP-L and CLIP-G; bf16, seeded random weights), 1024 px,
    16 frames: prompt encoding (then the text encoders are freed), VAE
    encode, RF-Solver content inversion with the block-20 feature captured
@@ -40,14 +57,16 @@ none catches its own failure:
 Each path's launch counters are zeroed just before it and read just after.
 The last line is ``{"ok": true, "device": {...}}``; the lines before it hold
 the per-kernel JSON and the card's name and power limit. Any failed check
-exits non-zero. ``--steps`` (SD-1.5) defaults to 30 and ``--sd3_steps`` to
-32: the fewest that run both stylization phases (the shift windows of the
-50-step constants close after step 25 / 30); 50 is the full workload.
+exits non-zero. ``--steps`` (SD-1.5) and ``--ad_steps`` default to 30 and
+``--sd3_steps`` to 32: the fewest that run both stylization phases (the
+shift windows of the 50-step constants close after step 25 (SD), 24 (AD)
+and 30 (SD3)); 50 is the full workload.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import os
@@ -409,9 +428,9 @@ def _check_launches(launches, want):
         raise AssertionError(f"kernel launches {launches}, want {want}")
 
 
-def _load_inputs(num_frames: int, px: int):
-    """The committed demo corpus: 16 content frames, a style image, the
-    first-frame mask."""
+def _load_inputs(num_frames: int, px: int, style_frames: int = 1):
+    """The committed demo corpus: 16 content frames, the style image
+    (repeated to ``style_frames``), the first-frame mask."""
     import numpy as np
     from PIL import Image
 
@@ -419,7 +438,7 @@ def _load_inputs(num_frames: int, px: int):
 
     ex = os.path.join(REPO, "examples")
     frames = load_video(os.path.join(ex, "contents", "demo-fly"), num_frames, (px, px))
-    style = load_style_image(os.path.join(ex, "styles", "00033.png"), 1, (px, px))
+    style = load_style_image(os.path.join(ex, "styles", "00033.png"), style_frames, (px, px))
     mask0 = np.asarray(Image.open(os.path.join(ex, "masks", "demo-fly.png"))
                        .resize((px, px), Image.NEAREST))
     return frames, style, mask0
@@ -499,6 +518,126 @@ def phase_main_path(steps: int):
                    masks_foreground=float((masks > 0).float().mean().item()),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"[main] {json.dumps(summary)}", flush=True)
+    return launches, (pipe, traj, ctx, masks)
+
+
+def phase_sd_fallback(sd_state, steps: int):
+    """The SD pipeline off the style-singleton path, on the card: the main
+    path's pipeline and content trajectory, which serves as the style (its
+    frames differ)."""
+    import torch
+
+    from univst_torch.core.adain import latent_adain
+    from univst_torch.core.config import StyleTransferConfig
+
+    pipe, traj, ctx, masks = sd_state
+    pipe = dataclasses.replace(pipe, style_singleton=False)
+    content_rev = torch.flip(traj, dims=[0])
+    counters = _zero_counters()
+    t0 = time.time()
+    out = pipe.stylize_latents(content_rev, content_rev,
+                               latent_adain(content_rev[0], content_rev[0]),
+                               torch.cat([ctx] * 3), mask=masks.float() / 255.0,
+                               cfg=StyleTransferConfig(num_steps=steps))
+    _sync()
+    stylize_s = time.time() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if not torch.isfinite(out).all():
+        raise AssertionError("fallback stylized latents have non-finite values")
+    # phase 1: a 16-frame capture forward and the 2-branch forward a step;
+    # phase 2: one forward; 10 K1 launches each (5 at 64x64, 5 at 32x32)
+    k1 = min(steps, pipe.style_shift_cfg.window_end())
+    _check_launches(launches, {"video_flash_attention": 10 * (2 * k1 + (steps - k1)),
+                               "video_flash_attention_tokens": 0})
+    print("[sd_fallback] " + json.dumps(dict(
+        steps=steps, frames=pipe.num_frames, phase1_steps=k1, stage_s={"stylize": stylize_s},
+        stylize_frames_per_s=pipe.num_frames / stylize_s, launches=launches)), flush=True)
+    return launches
+
+
+def _fill_motion_proj_out(unet, seed: int) -> int:
+    """Every motion module's ``proj_out`` (zero at init) from a generator
+    seeded with ``seed``, at the random init's lecun scale; returns the
+    module count."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mods = unet.motion_modules()
+    with torch.no_grad():
+        for mm in mods:
+            w = mm.temporal_transformer.proj_out.weight
+            w.copy_(torch.randn(w.shape, generator=gen, device=w.device) / w.shape[1] ** 0.5)
+    return len(mods)
+
+
+def phase_ad(steps: int):
+    """AnimateDiff-v2 at 512 px, 16 frames, bf16, on the card."""
+    import torch
+
+    from univst_torch.core.config import StyleTransferConfig
+    from univst_torch.pipelines.animatediff import build_animatediff
+
+    nf, px, device = 16, 512, "cuda"
+    frames, style, mask0 = _load_inputs(nf, px, style_frames=nf)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pipe = build_animatediff(variant="ad", num_frames=nf, dtype=torch.bfloat16,
+                             capture_up_block=2, seed=0, device=device)
+    n_mm = _fill_motion_proj_out(pipe.unet, seed=1)
+    _sync()
+    w_max = max(mm.temporal_transformer.proj_out.weight.abs().max().item()
+                for mm in pipe.unet.motion_modules())
+    print(f"[ad] built AnimateDiff-v2 (SD-1.5 2D UNet + {n_mm} motion modules, SVD VAE, "
+          f"CLIP-L; random weights, seed 0) in {time.time() - t0:.1f}s; proj_out of all "
+          f"{n_mm} motion modules filled from seed 1 (max |w| {w_max:.4g})", flush=True)
+    ts = pipe.schedule.timesteps(steps)
+    cap_t = 301 if 301 in ts else int(ts[len(ts) // 2])
+    gen = torch.Generator(device=device).manual_seed(0)
+    stage = {}
+
+    def run(name, fn):
+        t = time.time()
+        out = fn()
+        _sync()
+        stage[name] = time.time() - t
+        print(f"[ad] {name}: {stage[name]:.2f}s", flush=True)
+        return out
+
+    counters = _zero_counters()
+    t_main = time.time()
+    latents, ctx = run("encode", lambda: (pipe.encode_frames(frames, gen), pipe.encode_text("")))
+    traj, feat = run("content_inversion", lambda: pipe.invert(
+        latents, ctx, num_steps=steps, is_opt=True, capture_timestep=cap_t))
+    # the style image on all 16 frames: the motion modules tell them apart
+    straj, _ = run("style_inversion", lambda: pipe.invert(
+        pipe.encode_frames(style, gen), ctx, num_steps=steps, is_opt=False))
+    masks = run("mask_propagation", lambda: _propagate(feat, mask0, device))
+
+    def stylize():
+        content_rev = torch.flip(traj, dims=[0])
+        # the AnimateDiff runner starts from the raw content noise
+        return pipe.stylize_latents(content_rev, torch.flip(straj, dims=[0]), content_rev[0],
+                                    torch.cat([ctx] * 3), mask=masks.float() / 255.0,
+                                    cfg=StyleTransferConfig(num_steps=steps))
+
+    out = run("stylize", stylize)
+    chunks = run("decode", lambda: pipe.decode_latents_uint8_chunks(out, 8))
+    rec = run("reconstruction", lambda: pipe.reconstruct_latents(traj[-1], ctx, num_steps=steps))
+    main_s = time.time() - t_main
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    video = torch.cat(chunks)
+    psnr = _check_outputs({"trajectory": traj, "feature": feat, "style trajectory": straj,
+                           "stylized latents": out, "reconstruction": rec},
+                          masks, video, nf, px, traj[0], rec)
+    _check_launches(launches, {"video_flash_attention": 0, "video_flash_attention_tokens": 0})
+    summary = dict(steps=steps, frames=nf, size=px, stage_s=stage, main_path_s=main_s,
+                   workflow_frames_per_s=nf / main_s,
+                   stylize_frames_per_s=nf / (stage["stylize"] + stage["decode"]),
+                   recon_latent_psnr_db=psnr, launches=launches,
+                   masks_foreground=float((masks > 0).float().mean().item()),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[ad] {json.dumps(summary)}", flush=True)
     return launches
 
 
@@ -597,6 +736,8 @@ def _entry(name, replaces, launches, cases, main_case):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=30, help="SD-1.5 steps (>= 27: both phases)")
+    p.add_argument("--ad_steps", type=int, default=30,
+                   help="AnimateDiff steps (>= 26: both phases)")
     p.add_argument("--sd3_steps", type=int, default=32, help="SD3 steps (>= 32: both phases)")
     args = p.parse_args(argv)
     try:
@@ -620,7 +761,12 @@ def main(argv=None) -> int:
     smi = phase_device()
     phase_build()
     cases, tokens = phase_kernels()
-    sd_launches = phase_main_path(args.steps)
+    sd_launches, sd_state = phase_main_path(args.steps)
+    phase_sd_fallback(sd_state, args.steps)
+    del sd_state
+    torch.cuda.empty_cache()
+    phase_ad(args.ad_steps)
+    torch.cuda.empty_cache()
     sd3_launches = phase_sd3(args.sd3_steps)
 
     entries = [

@@ -89,13 +89,14 @@ def test_ddim_sample_segment_matches_jax():
     _close(got, want)
 
 
-@pytest.mark.parametrize("layout", ["three_branch", "injected", "solo"])
+@pytest.mark.parametrize("layout", ["three_branch", "injected", "solo", "capture"])
 def test_style_transfer_steps_match_jax(layout):
     """Mask blend (i <= 0.9N) and AdaIN re-anchor ((0.8N, 0.9N]) over all N
-    steps, for each denoiser layout."""
+    steps, for each denoiser layout (``capture``: the denoiser gets the
+    step's per-frame style latents)."""
     f = 3
     rng = np.random.default_rng(5)
-    sty_frames = 1 if layout != "three_branch" else f
+    sty_frames = 1 if layout in ("injected", "solo") else f
     cnt = rng.standard_normal((N, f, 8, 8, 4)).astype(np.float32)
     sty = rng.standard_normal((N, sty_frames, 8, 8, 4)).astype(np.float32) * 1.5 + 0.3
     lat0 = _latents(seed=6)
@@ -106,18 +107,22 @@ def test_style_transfer_steps_match_jax(layout):
 
     def jden(x, t, i, kv_t=None):
         e = _eps_j(x, t)
+        if layout == "capture":
+            return e + jnp.mean(kv_t, axis=0) * 0.1
         return e if kv_t is None else e + jnp.mean(kv_t[0][0])
 
     def tden(x, t, i, kv_t=None):
         e = _eps_t(x, t)
+        if layout == "capture":
+            return e + kv_t.mean(dim=0) * 0.1
         return e if kv_t is None else e + kv_t[0][0].mean()
 
     kw_j, kw_t = {}, {}
     if layout == "injected":
         kw_j["style_kv"] = ((jnp.asarray(kv), jnp.asarray(kv)),)
         kw_t["style_kv"] = ((torch.tensor(kv), torch.tensor(kv)),)
-    if layout == "solo":
-        kw_j["solo"] = kw_t["solo"] = True
+    if layout in ("solo", "capture"):
+        kw_j[layout] = kw_t[layout] = True
     want = j_steps(jden, jnp.asarray(cnt), jnp.asarray(sty), jnp.asarray(lat0), jnp.arange(N),
                    jnp.asarray(ts_np), JDDIM(), JSTCfg(num_steps=N), mask=jnp.asarray(mask),
                    **kw_j)

@@ -51,7 +51,10 @@ def test_every_module_imports_without_jax():
 @pytest.mark.parametrize("cli", ["run_workflow", "run_content_inversion_sd",
                                  "run_style_inversion_sd", "mask_propagation",
                                  "run_video_style_transfer_sd", "run_content_inversion_sd3",
-                                 "run_style_inversion_sd3", "run_video_style_transfer_sd3"])
+                                 "run_style_inversion_sd3", "run_video_style_transfer_sd3",
+                                 "run_content_inversion_animatediff",
+                                 "run_style_inversion_animatediff",
+                                 "run_video_style_transfer_animatediff"])
 def test_cli_help_without_jax(cli):
     res = _run(f"import runpy; sys.argv = ['x', '--help']; "
                f"runpy.run_module('univst_torch.cli.{cli}', run_name='__main__')")
@@ -77,28 +80,55 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 @pytest.mark.parametrize("backbone", ["animatediff", "sd3"])
 def test_unported_backbones_raise_clearly(backbone, tmp_path):
-    """AnimateDiff is not ported and raises. The sd3 case now runs: the tiny
-    workflow on the CPU writes the reference tree with rank-4 trajectories
-    (``[F, C, h, w]`` fp16; frames are SD3's batch)."""
+    """Both backbones are ported now: the tiny workflow on the CPU writes the
+    reference tree. AnimateDiff: ``[1, C, F, h, w]`` fp16 trajectories (the
+    style inverted on every frame), the captured feature, F stylized PNGs.
+    SD3: rank-4 trajectories (``[F, C, h, w]`` fp16; frames are SD3's
+    batch)."""
     import torch
 
     from univst_torch.cli import run_workflow
 
-    if backbone == "animatediff":
-        with pytest.raises(SystemExit, match="not ported"):
-            run_workflow.main(run_workflow.build_parser().parse_args(["--backbone", backbone]))
-        return
     ex = os.path.join(REPO, "examples")
+    ft = ["--ft_indices", "0", "--ft_timesteps", "0"] if backbone == "sd3" else [
+        "--ft_timesteps", "501"]
     run_workflow.main(run_workflow.build_parser().parse_args([
-        "--backbone", "sd3", "--variant", "tiny", "--platform", "cpu", "--num_frames", "2",
-        "--height", "32", "--width", "32", "--time_steps", "1", "--ft_indices", "0",
-        "--ft_timesteps", "0", "--content_path", os.path.join(ex, "contents", "demo-fly-tiny"),
+        "--backbone", backbone, "--variant", "tiny", "--platform", "cpu", "--num_frames", "2",
+        "--height", "32", "--width", "32", "--time_steps", "1" if backbone == "sd3" else "2",
+        *ft, "--content_path", os.path.join(ex, "contents", "demo-fly-tiny"),
         "--style_path", os.path.join(ex, "styles", "tiny-00033.png"),
         "--mask_path", os.path.join(ex, "masks", "demo-fly-tiny.png"),
         "--output_root", str(tmp_path)]))
+    shape = (2, 16, 16, 16) if backbone == "sd3" else (1, 4, 2, 16, 16)
     for stage, name in (("contents-inv", "demo-fly-tiny"), ("styles-inv", "tiny-00033")):
         for i in range(2):
-            z = torch.load(tmp_path / stage / "sd3" / name / "inversion" / f"ddim_latents_{i}.pt",
-                           weights_only=True)
-            assert z.dtype == torch.float16 and tuple(z.shape) == (2, 16, 16, 16)
-    assert len(os.listdir(tmp_path / "stylizations" / "sd3" / "demo-fly-tiny_tiny-00033")) == 2
+            z = torch.load(tmp_path / stage / backbone / name / "inversion"
+                           / f"ddim_latents_{i}.pt", weights_only=True)
+            assert z.dtype == torch.float16 and tuple(z.shape) == shape
+    if backbone == "animatediff":
+        feat = torch.load(tmp_path / "contents-inv" / backbone / "demo-fly-tiny" / "features"
+                          / "inversion_feature_map_2_block_501_step.pt", weights_only=True)
+        assert feat.shape[0] == 2 and feat.float().abs().max() > 0
+    out = tmp_path / "stylizations" / backbone / "demo-fly-tiny_tiny-00033"
+    assert len(os.listdir(out)) == 2
+
+
+def test_sd_transfer_falls_back_on_a_non_identical_style_trajectory(tmp_path):
+    """A style trajectory whose frames differ (here the content inversion
+    itself) is not cut to its first frame: the SD transfer CLI warns and
+    stylizes by capture-and-inject (the JAX CLI's fallback)."""
+    import numpy as np
+
+    from univst_torch.cli import run_video_style_transfer_sd as st
+    from univst_torch.core.trajectory import save_trajectory
+
+    steps, f, size = 3, 2, 64
+    content = np.random.default_rng(0).standard_normal((steps + 1, f, size // 8, size // 8, 4))
+    inv = tmp_path / "ci" / "vid" / "inversion"
+    save_trajectory(content.astype(np.float32), str(inv))
+    argv = ["--variant", "tiny", "--num_frames", str(f), "--height", str(size), "--width",
+            str(size), "--time_steps", str(steps), "--platform", "cpu", "--content_inv_path",
+            str(inv), "--style_inv_path", str(inv), "--output_path", str(tmp_path / "st")]
+    with pytest.warns(UserWarning, match="non-identical"):
+        st.main(st.build_parser().parse_args(argv))
+    assert len(os.listdir(tmp_path / "st" / "sd" / "vid_vid")) == f

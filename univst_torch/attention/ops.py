@@ -114,10 +114,11 @@ def apply_style_shift_injected(q, k, v, style_k, style_v, step_idx: int,
     """2-branch AdaIN shift on pre-head ``[2F, L, D]`` tensors.
 
     Batch layout is [content | stylized]; the style branch's projected K/V
-    arrive precomputed as ``style_k`` / ``style_v`` of shape ``[1, L, D]``
-    (style frames are identical, so the style branch runs once as a single
-    frame). The math is :func:`apply_style_shift` with the style chunk
-    broadcast from one frame.
+    arrive precomputed as ``style_k`` / ``style_v``: ``[1, L, D]`` on the
+    style-singleton path (identical style frames: the style branch ran once
+    as a single frame, broadcast here), or ``[F, L, D]`` from a capture
+    forward of all F style frames (capture-and-inject). The math is
+    :func:`apply_style_shift` with that style chunk.
     """
     if not cfg.window_gate(step_idx):
         return q, k, v

@@ -76,27 +76,40 @@ def load_feature_pt(path: str) -> np.ndarray:
 
 
 def check_backbone(args) -> None:
-    """The port runs the SD and SD3 backbones on one device; the rest raises."""
-    if getattr(args, "backbone", "sd") not in (None, "sd", "sd3"):
+    """The port runs the SD, AnimateDiff and SD3 backbones on one device;
+    ``--mesh`` raises."""
+    if getattr(args, "backbone", "sd") not in (None, "sd", "animatediff", "sd3"):
         raise SystemExit(f"--backbone {args.backbone} {NOT_PORTED}")
     if getattr(args, "mesh", None):
         raise SystemExit(f"--mesh {NOT_PORTED}")
 
 
 def build_pipeline_from_args(args, capture_up_block=None, num_frames=None):
-    """Construct the SD pipeline from the shared CLI flags."""
-    from univst_torch.pipelines.sd import SDVideoPipeline
-
+    """Construct the SD or AnimateDiff pipeline from the shared CLI flags
+    (``univst_tpu/cli/common.py:90-118``)."""
     check_backbone(args)
-    return SDVideoPipeline.build(
+    kw = dict(
         pretrained_model_path=args.pretrained_model_path,
-        variant=args.variant,
         num_frames=args.num_frames if num_frames is None else num_frames,
         dtype=parse_dtype(args.weight_dtype),
         capture_up_block=capture_up_block,
         seed=args.seed or 0,
         device=setup_device(args.platform),
     )
+    if args.backbone == "animatediff":
+        from univst_torch.pipelines.animatediff import build_animatediff
+
+        return build_animatediff(
+            motion_module_path=getattr(args, "motion_module_path", None),
+            dreambooth_path=getattr(args, "dreambooth_path", None),
+            lora_path=getattr(args, "lora_path", None),
+            lora_alpha=getattr(args, "lora_alpha", 0.8),
+            variant="tiny" if args.variant == "tiny" else "ad",
+            **kw,
+        )
+    from univst_torch.pipelines.sd import SDVideoPipeline
+
+    return SDVideoPipeline.build(variant=args.variant, **kw)
 
 
 def add_mesh_flag(parser):
@@ -111,24 +124,13 @@ def generator_for(device, seed: int):
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
-def require_singleton_style(style_inv_path: str, time_steps: int) -> None:
-    """The port stylizes on the style-singleton path, exact only when every
-    frame of the style trajectory is identical (true for
-    run_style_inversion_sd outputs). The JAX package's fallback for other
-    trajectories belongs to a later slice."""
-    from univst_torch.core.trajectory import style_frames_identical
-
-    if not style_frames_identical(style_inv_path, time_steps):
-        raise SystemExit(f"style trajectory at {style_inv_path} has non-identical frames; "
-                         f"that stylization path {NOT_PORTED}")
-
-
 def singleton_style_or_fallback(pipe, style_rev, style_inv_path: str, time_steps: int):
-    """The SD3 transfer CLI's style-singleton guard (``univst_tpu/cli/
+    """The transfer CLIs' style-singleton guard (``univst_tpu/cli/
     common.py:142-166``): the fast path keeps one frame of the style
     trajectory, exact only when all its frames are identical (true for
-    run_style_inversion_* outputs). Another trajectory falls back to the
-    exact 3-branch batch with a warning instead of silently dropping frames.
+    run_style_inversion_sd / _sd3 outputs). Another trajectory falls back to
+    the exact non-singleton path (SD: capture-and-inject; SD3: the 3-branch
+    batch) with a warning instead of silently dropping frames.
 
     Returns the (possibly replaced) pipeline and style trajectory.
     """

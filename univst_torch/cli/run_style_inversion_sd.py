@@ -1,11 +1,13 @@
 """Style-image DDIM inversion CLI (SD backbone) — port of
 ``univst_tpu/cli/run_style_inversion_sd.py``, flag for flag.
 
-The style image repeated over frames makes every frame of the inversion
+The style image repeated over frames makes every frame of the SD inversion
 identical (the temporal layers are identities, GroupNorm and cross-frame
-attention are frame-symmetric over identical frames), so the inversion runs
-on a single frame and the trajectory is tiled back to num_frames on save, in
-the reference's ``ddim_latents_{i}.pt`` layout."""
+attention are frame-symmetric over identical frames), so it runs on a single
+frame and the trajectory is tiled back to num_frames on save, in the
+reference's ``ddim_latents_{i}.pt`` layout. AnimateDiff's motion modules
+give each frame its own position, so that backbone inverts all num_frames
+frames."""
 
 from __future__ import annotations
 
@@ -28,21 +30,24 @@ def main(args):
         seed_everything(args.seed)
 
     num_frames_out = args.num_frames
-    pipe = build_pipeline_from_args(args, num_frames=1)  # invert one frame
+    # SD: invert one frame; all repeated frames evolve identically
+    n_inv = num_frames_out if args.backbone == "animatediff" else 1
+    pipe = build_pipeline_from_args(args, num_frames=n_inv)
     name = os.path.basename(args.style_path).split(".")[0]
     paths = make_output_tree(args.output_path, args.backbone, name)
 
-    frames = load_style_image(args.style_path, 1, (args.width, args.height))
+    frames = load_style_image(args.style_path, n_inv, (args.width, args.height))
     latents = pipe.encode_frames(frames, generator_for(pipe.device, args.seed or 0))
     context = pipe.encode_text(args.prompt)
 
     print("inversion:")
     traj, _ = pipe.invert(latents, context, num_steps=args.time_steps, is_opt=args.is_opt)
-    save_trajectory(traj.repeat(1, num_frames_out, 1, 1, 1), paths["inversion"])
+    reps = num_frames_out // n_inv
+    save_trajectory(traj.repeat(1, reps, 1, 1, 1), paths["inversion"])
 
     print("reconstruction:")
     lat0 = pipe.reconstruct_latents(traj[-1], context, num_steps=args.time_steps)
-    video = np.tile(pipe.decode_latents(lat0).cpu().numpy(), (num_frames_out, 1, 1, 1))
+    video = np.tile(pipe.decode_latents(lat0).cpu().numpy(), (reps, 1, 1, 1))
     save_video(video, os.path.join(paths["reconstruction"], "style_video.mp4"), fps=8)
     print(f"done -> {paths['base']}")
 

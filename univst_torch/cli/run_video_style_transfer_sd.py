@@ -2,9 +2,10 @@
 ``univst_tpu/cli/run_video_style_transfer_sd.py``, flag for flag.
 
 Loads both inversion trajectories, AdaIN-shifts the initial noise
-(pnp_utils.py latent_adain), runs the stylization loop with optional
-localized masking, and writes per-frame PNGs to
-{out}/sd/{content}_{style}/. Runs on CUDA unless ``--platform cpu``."""
+(pnp_utils.py latent_adain; AnimateDiff starts from the raw content noise),
+runs the stylization loop with optional localized masking, and writes
+per-frame PNGs to {out}/{backbone}/{content}_{style}/. Runs on CUDA unless
+``--platform cpu``."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import os
 
 from univst_torch.cli.common import (
     NOT_PORTED, add_mesh_flag, build_pipeline_from_args, check_backbone,
-    require_singleton_style,
+    singleton_style_or_fallback,
 )
 from univst_torch.utils.io import load_mask, save_frames, seed_everything
 
@@ -30,16 +31,23 @@ def main(args):
         raise SystemExit(f"--smoother {NOT_PORTED}")
     if args.seed is not None:
         seed_everything(args.seed)
-    require_singleton_style(args.style_inv_path, args.time_steps)
 
     pipe = build_pipeline_from_args(args)
     # trajectories ordered so index i holds latents at inversion step N-i
     content_rev = load_trajectory(args.content_inv_path, args.time_steps, reverse=True,
                                   device=pipe.device)
     style_rev = load_trajectory(args.style_inv_path, args.time_steps, reverse=True,
-                                device=pipe.device)[:, :1]
-    # init latent shift (run_video_style_transfer_sd.py:55-57)
-    init_latents = latent_adain(content_rev[0], style_rev[0])
+                                device=pipe.device)
+    if pipe.style_singleton:
+        pipe, style_rev = singleton_style_or_fallback(pipe, style_rev, args.style_inv_path,
+                                                      args.time_steps)
+    # init latent shift (run_video_style_transfer_sd.py:55-57); the
+    # AnimateDiff runner passes the raw content noise instead
+    # (run_video_style_transfer_animatediff.py:59-69)
+    if args.backbone == "animatediff":
+        init_latents = content_rev[0]
+    else:
+        init_latents = latent_adain(content_rev[0], style_rev[0])
 
     mask = None
     if args.mask_path:

@@ -6,7 +6,8 @@ propagation, video style transfer — the reference's scripts/start_*.sh)
 in one Python process. Each stage reuses the stage CLI's own parser and
 ``main`` with the argv scripts/start_*.sh would pass, so flags and output
 layouts are those of the separate stage CLIs. Runs on CUDA unless
-``--platform cpu``; the SD and SD3 backbones are ported, AnimateDiff raises.
+``--platform cpu``; the SD, AnimateDiff and SD3 backbones are ported,
+``--mesh`` raises.
 
 Usage:
   python -m univst_torch.cli.run_workflow --backbone sd \
@@ -28,10 +29,12 @@ from univst_torch.cli.common import NOT_PORTED
 _STAGE_MODULES = {
     "sd": ("run_content_inversion_sd", "run_style_inversion_sd",
            "run_video_style_transfer_sd"),
+    "animatediff": ("run_content_inversion_animatediff",
+                    "run_style_inversion_animatediff",
+                    "run_video_style_transfer_animatediff"),
     "sd3": ("run_content_inversion_sd3", "run_style_inversion_sd3",
             "run_video_style_transfer_sd3"),
 }
-_BACKBONES = ("sd", "animatediff", "sd3")
 
 
 def _argv_for(parser: argparse.ArgumentParser, flags: dict) -> list[str]:
@@ -50,8 +53,6 @@ def _argv_for(parser: argparse.ArgumentParser, flags: dict) -> list[str]:
 
 
 def main(args):
-    if args.backbone not in _STAGE_MODULES:
-        raise SystemExit(f"--backbone {args.backbone} {NOT_PORTED}")
     if args.mesh:
         raise SystemExit(f"--mesh {NOT_PORTED}")
     ci_mod, si_mod, st_mod = (importlib.import_module(f"univst_torch.cli.{m}")
@@ -80,6 +81,9 @@ def main(args):
         "--time_steps": args.time_steps,
         "--weight_dtype": args.weight_dtype,
         "--seed": args.seed,
+        "--motion_module_path": args.motion_module_path,
+        "--dreambooth_path": args.dreambooth_path,
+        "--lora_path": args.lora_path,
     }
 
     t_all = time.time()
@@ -99,7 +103,7 @@ def main(args):
             **shared,
             "--content_path": args.content_path,
             "--output_path": f"{root}/contents-inv",
-            "--is_opt": args.backbone == "sd",
+            "--is_opt": args.backbone in ("sd", "animatediff"),
             "--is_rf_solver": args.backbone == "sd3",
             "--ft_indices": args.ft_indices,
             "--ft_timesteps": args.ft_timesteps,
@@ -141,7 +145,7 @@ def main(args):
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--backbone", type=str, default="sd", choices=list(_BACKBONES))
+    p.add_argument("--backbone", type=str, default="sd", choices=list(_STAGE_MODULES))
     p.add_argument("--content_path", type=str, default="examples/contents/demo-fly")
     p.add_argument("--style_path", type=str, default="examples/styles/00033.png")
     p.add_argument("--mask_path", type=str, default="examples/masks/demo-fly.png")

@@ -81,6 +81,8 @@ class StyleShiftConfig:
 
 # Per-backbone presets (constants lifted from the reference pnp modules).
 SD_STYLE_SHIFT = StyleShiftConfig(alpha=0.65, gamma=3.0, eta2=0.5, window_mode="sd")
+# AnimateDiff's window is steps 0-24 of the 50-step constants: window_end() is 25
+AD_STYLE_SHIFT = StyleShiftConfig(alpha=0.8, gamma=2.0, eta2=0.5, window_mode="ad")
 # SD3's window is steps 0-30 of the 50-step constants: window_end() is 31
 SD3_STYLE_SHIFT = StyleShiftConfig(alpha=0.8, gamma=2.0, eta2=0.6, window_mode="sd3")
 

@@ -46,18 +46,27 @@ def style_transfer_ddim_steps(
     mask=None,
     style_kv=None,
     solo: bool = False,
+    capture: bool = False,
 ):
     """Run a contiguous segment of the stylization loop (steps/ts of length K,
     trajectory chunks ``[K, F|1, h, w, C]``).
 
     Denoiser layouts:
       * ``style_kv=None``: 3-branch — ``denoise3([3F], t, i)``;
-      * ``style_kv`` given (tuple over PnP slots of (k, v), each ``[K, L, D]``):
-        2-branch — ``denoise3([2F], t, i, kv_t)`` with the style branch's
-        per-step PnP K/V injected (each ``[1, L, D]``); ``style_chunk`` is
-        ``[K, 1, h, w, C]`` and still feeds the latent AdaIN re-anchor;
+      * ``style_kv`` given (tuple over PnP slots of (k, v), each with a
+        leading step axis K): 2-branch — ``denoise3([2F], t, i, kv_t)`` with
+        the style branch's PnP K/V of step j injected (``kv_t`` holds the
+        step's slices, the leading axis dropped); ``style_chunk`` still feeds
+        the latent AdaIN re-anchor;
       * ``solo=True``: stylized-only — ``denoise3([F], t, i)`` — for steps past
-        the shift window, where the content/style forwards are dead compute.
+        the shift window, where the content/style forwards are dead compute;
+      * ``capture=True``: 2-branch capture-and-inject —
+        ``denoise3([2F], t, i, style_latents_t)`` runs the style branch's
+        forward itself (capturing its PnP K/V) and injects that K/V into the
+        [content | stylized] batch. The exact decomposition of the 3-branch
+        batch (the branches couple only through the attention shift) for
+        style frames that are not identical (AnimateDiff: the motion
+        modules' frame positions).
     """
     n = cfg.num_steps
     f, h, w, _ = latents.shape
@@ -78,10 +87,12 @@ def style_transfer_ddim_steps(
 
         if solo:
             eps = denoise3(latents, t, i)
+        elif capture:
+            eps = denoise3(torch.cat([cnt_t, latents]), t, i, sty_t)[f:]
         elif style_kv is None:
             eps = denoise3(torch.cat([cnt_t, sty_t, latents]), t, i)[2 * f:]
         else:
-            kv_t = tuple((k[j:j + 1], v[j:j + 1]) for k, v in style_kv)
+            kv_t = tuple((k[j], v[j]) for k, v in style_kv)
             eps = denoise3(torch.cat([cnt_t, latents]), t, i, kv_t)[f:]
         latents = schedule.step(eps, t, latents, n)
     return latents

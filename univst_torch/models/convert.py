@@ -11,8 +11,10 @@ Two directions meet here:
   * :func:`load_pretrained` reads a diffusers-layout checkpoint directory
     (``unet/``, ``vae/``, ``text_encoder/``; for SD3 ``transformer/``,
     ``vae/``, ``text_encoder/``, ``text_encoder_2/``, ``text_encoder_3/``)
-    and loads it with ``strict=True``, so a missing or unexpected key fails
-    loudly.
+    and loads it strictly, so a missing or unexpected key fails loudly. The
+    one exception is AnimateDiff's motion modules, which a 2D ``unet/``
+    checkpoint does not carry: :func:`load_motion_module` loads them from
+    their own file.
 """
 
 from __future__ import annotations
@@ -64,6 +66,21 @@ class _Emitter:
         self.put(src + ".weight", np.transpose(self.leaf(dst + "/kernel"), (3, 2, 0, 1)))
         self.put(src + ".bias", self.leaf(dst + "/bias"))
 
+    def conv1d(self, src: str, dst: str):
+        # frame-axis conv [k, 1, in, out] -> Conv1d [out, in, k]
+        self.put(src + ".weight", np.transpose(self.leaf(dst + "/kernel")[:, 0], (2, 1, 0)))
+        self.put(src + ".bias", self.leaf(dst + "/bias"))
+
+    def pseudo_conv(self, src: str, dst: str):
+        """A pseudo-3D conv: the spatial conv under ``src``, and its temporal
+        tap, where the params have one, under ``src.conv_temporal``. Params
+        with no ``spatial`` level are a plain 2D conv (AnimateDiff)."""
+        if not self.has(dst + "/spatial"):
+            return self.conv2d(src, dst)
+        self.conv2d(src, dst + "/spatial")
+        if self.has(dst + "/temporal"):
+            self.conv1d(src + ".conv_temporal", dst + "/temporal")
+
     def conv_time(self, src: str, dst: str):
         # frame-axis conv [3, 1, in, out] -> Conv3d [out, in, 3, 1, 1]
         k = self.leaf(dst + "/kernel")
@@ -85,32 +102,41 @@ def _unet_transformer(e: _Emitter, src: str, dst: str, use_linear: bool):
             e.put(f"{src}.{p}.bias", e.leaf(f"{dst}/{p}/bias"))
     blk_s, blk_d = f"{src}.transformer_blocks.0", f"{dst}/block"
     for attn in ("attn1", "attn2"):
-        for p in ("to_q", "to_k", "to_v"):
-            e.linear(f"{blk_s}.{attn}.{p}", f"{blk_d}/{attn}/{p}", bias=False)
-        e.linear(f"{blk_s}.{attn}.to_out.0", f"{blk_d}/{attn}/to_out")
+        _attention(e, f"{blk_s}.{attn}", f"{blk_d}/{attn}")
     for ln in ("norm1", "norm2", "norm3"):
         e.norm(f"{blk_s}.{ln}", f"{blk_d}/{ln}")
     e.linear(f"{blk_s}.ff.net.0.proj", f"{blk_d}/ff/proj")
     e.linear(f"{blk_s}.ff.net.2", f"{blk_d}/ff/out")
+    if e.has(f"{blk_d}/attn_temporal"):  # the inflated SD UNet
+        _attention(e, f"{blk_s}.attn_temporal", f"{blk_d}/attn_temporal")
+        e.norm(f"{blk_s}.norm_temporal", f"{blk_d}/norm_temporal")
+
+
+def _attention(e: _Emitter, src: str, dst: str):
+    for p in ("to_q", "to_k", "to_v"):
+        e.linear(f"{src}.{p}", f"{dst}/{p}", bias=False)
+    e.linear(f"{src}.to_out.0", f"{dst}/to_out")
 
 
 def _unet_resnet(e: _Emitter, src: str, dst: str):
     e.norm(f"{src}.norm1", f"{dst}/norm1")
-    e.conv2d(f"{src}.conv1", f"{dst}/conv1/spatial")
+    e.pseudo_conv(f"{src}.conv1", f"{dst}/conv1")
     e.linear(f"{src}.time_emb_proj", f"{dst}/time_emb_proj")
     e.norm(f"{src}.norm2", f"{dst}/norm2")
-    e.conv2d(f"{src}.conv2", f"{dst}/conv2/spatial")
-    if e.has(f"{dst}/conv_shortcut/spatial/kernel"):
-        e.conv2d(f"{src}.conv_shortcut", f"{dst}/conv_shortcut/spatial")
+    e.pseudo_conv(f"{src}.conv2", f"{dst}/conv2")
+    if e.has(f"{dst}/conv_shortcut"):
+        e.pseudo_conv(f"{src}.conv_shortcut", f"{dst}/conv_shortcut")
 
 
 def flax_unet_to_state_dict(params: Mapping, cfg) -> Dict[str, np.ndarray]:
-    """The JAX ``UNetPseudo3D`` params (temporal layers elided) as a
-    diffusers ``UNet2DConditionModel`` state dict."""
+    """The JAX ``UNetPseudo3D`` params as a diffusers ``UNet2DConditionModel``
+    state dict; the inflated form's temporal layers (where the params have
+    them) under the reference's names: ``*.conv_temporal``,
+    ``transformer_blocks.0.{attn,norm}_temporal``."""
     e = _Emitter(params)
     n = len(cfg.block_out_channels)
     lin = cfg.use_linear_projection
-    e.conv2d("conv_in", "conv_in/spatial")
+    e.pseudo_conv("conv_in", "conv_in")
     e.linear("time_embedding.linear_1", "time_embedding/linear_1")
     e.linear("time_embedding.linear_2", "time_embedding/linear_2")
     for i in range(n):
@@ -119,7 +145,7 @@ def flax_unet_to_state_dict(params: Mapping, cfg) -> Dict[str, np.ndarray]:
             if cfg.down_block_has_attn[i]:
                 _unet_transformer(e, f"down_blocks.{i}.attentions.{j}", f"down_{i}/attn_{j}", lin)
         if i < n - 1:
-            e.conv2d(f"down_blocks.{i}.downsamplers.0.conv", f"down_{i}/downsample/spatial")
+            e.pseudo_conv(f"down_blocks.{i}.downsamplers.0.conv", f"down_{i}/downsample")
     _unet_resnet(e, "mid_block.resnets.0", "mid/resnet_0")
     _unet_resnet(e, "mid_block.resnets.1", "mid/resnet_1")
     _unet_transformer(e, "mid_block.attentions.0", "mid/attn_0", lin)
@@ -129,9 +155,62 @@ def flax_unet_to_state_dict(params: Mapping, cfg) -> Dict[str, np.ndarray]:
             if cfg.up_block_has_attn[i]:
                 _unet_transformer(e, f"up_blocks.{i}.attentions.{j}", f"up_{i}/attn_{j}", lin)
         if i < n - 1:
-            e.conv2d(f"up_blocks.{i}.upsamplers.0.conv", f"up_{i}/upsample/spatial")
+            e.pseudo_conv(f"up_blocks.{i}.upsamplers.0.conv", f"up_{i}/upsample")
     e.norm("conv_norm_out", "conv_norm_out")
-    e.conv2d("conv_out", "conv_out/spatial")
+    e.pseudo_conv("conv_out", "conv_out")
+    return e.out
+
+
+def _motion_module(e: _Emitter, src: str, dst: str, cfg):
+    """One motion module under the ``mm_sd_v15_v2`` key names (the inverse
+    of ``univst_tpu/models/convert.py::convert_motion_module``)."""
+    tt = f"{src}.temporal_transformer"
+    e.norm(f"{tt}.norm", f"{dst}/norm")
+    e.linear(f"{tt}.proj_in", f"{dst}/proj_in")
+    e.linear(f"{tt}.proj_out", f"{dst}/proj_out")
+    for blk in range(cfg.motion_num_blocks):
+        tb, db = f"{tt}.transformer_blocks.{blk}", f"{dst}/block_{blk}"
+        for a in range(cfg.motion_attention_layers):
+            _attention(e, f"{tb}.attention_blocks.{a}", f"{db}_attn_{a}")
+            e.norm(f"{tb}.norms.{a}", f"{db}_norm_{a}")
+        e.linear(f"{tb}.ff.net.0.proj", f"{db}_ff/proj")
+        e.linear(f"{tb}.ff.net.2", f"{db}_ff/out")
+        e.norm(f"{tb}.ff_norm", f"{db}_ff_norm")
+
+
+def flax_ad_unet_to_state_dict(params: Mapping, cfg) -> Dict[str, np.ndarray]:
+    """The JAX ``UNetAnimateDiff`` params, 2D part and motion modules, as the
+    port's ``UNetAnimateDiff`` state dict: diffusers keys for the 2D part,
+    ``mm_sd_v15_v2`` keys for the motion modules."""
+    e = _Emitter(params)
+    n = len(cfg.block_out_channels)
+    lin = cfg.use_linear_projection
+    e.conv2d("conv_in", "conv_in")
+    e.linear("time_embedding.linear_1", "time_embedding/linear_1")
+    e.linear("time_embedding.linear_2", "time_embedding/linear_2")
+    for i in range(n):
+        for j in range(cfg.layers_per_block):
+            _unet_resnet(e, f"down_blocks.{i}.resnets.{j}", f"down_{i}_resnet_{j}")
+            if cfg.down_block_has_attn[i]:
+                _unet_transformer(e, f"down_blocks.{i}.attentions.{j}", f"down_{i}_attn_{j}", lin)
+            _motion_module(e, f"down_blocks.{i}.motion_modules.{j}", f"down_{i}_motion_{j}", cfg)
+        if i < n - 1:
+            e.conv2d(f"down_blocks.{i}.downsamplers.0.conv", f"down_{i}_downsample")
+    _unet_resnet(e, "mid_block.resnets.0", "mid_resnet_0")
+    _unet_transformer(e, "mid_block.attentions.0", "mid_attn_0", lin)
+    if cfg.motion_mid_block:
+        _motion_module(e, "mid_block.motion_modules.0", "mid_motion", cfg)
+    _unet_resnet(e, "mid_block.resnets.1", "mid_resnet_1")
+    for i in range(n):
+        for j in range(cfg.layers_per_block + 1):
+            _unet_resnet(e, f"up_blocks.{i}.resnets.{j}", f"up_{i}_resnet_{j}")
+            if cfg.up_block_has_attn[i]:
+                _unet_transformer(e, f"up_blocks.{i}.attentions.{j}", f"up_{i}_attn_{j}", lin)
+            _motion_module(e, f"up_blocks.{i}.motion_modules.{j}", f"up_{i}_motion_{j}", cfg)
+        if i < n - 1:
+            e.conv2d(f"up_blocks.{i}.upsamplers.0.conv", f"up_{i}_upsample")
+    e.norm("conv_norm_out", "conv_norm_out")
+    e.conv2d("conv_out", "conv_out")
     return e.out
 
 
@@ -310,7 +389,9 @@ def _find_weights(dirpath: str) -> Optional[str]:
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """A .safetensors / .bin / .pt weights file as a dict of CPU tensors."""
+    """A .safetensors / .bin / .pt / .ckpt weights file as a dict of CPU
+    tensors; a pickle that nests its weights under ``state_dict`` (the
+    AnimateDiff motion and LDM checkpoints) gives that dict."""
     if path.endswith(".safetensors"):
         from safetensors.torch import load_file
 
@@ -319,11 +400,41 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     return sd.get("state_dict", sd)
 
 
+def _is_motion_key(key: str) -> bool:
+    return ".motion_modules." in key
+
+
+def load_strict(module, sd: Mapping[str, torch.Tensor], name: str) -> None:
+    """``load_state_dict`` that accepts no unexpected key and misses none,
+    except the motion modules of an AnimateDiff UNet, which 2D checkpoints
+    do not carry (reference load_weights, animatediff/utils/util.py:89-121)."""
+    missing, unexpected = module.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not _is_motion_key(k)]
+    if missing or unexpected:
+        raise RuntimeError(f"{name}: missing keys {missing[:5]}, unexpected keys "
+                           f"{unexpected[:5]}")
+
+
+def load_motion_module(unet, path: str) -> None:
+    """Load an ``mm_sd_v15_v2``-style motion checkpoint into ``unet``'s motion
+    modules. Every motion-module weight must be there and every key must
+    map (the reference's zero-unexpected-keys assertion, util.py:119-120);
+    the ``pos_encoder.pe`` tables some checkpoints carry are skipped (the
+    port recomputes them)."""
+    sd = {k: v for k, v in load_state_dict_file(path).items() if not k.endswith("pos_encoder.pe")}
+    own = {k for k in unet.state_dict() if _is_motion_key(k)}
+    missing, stray = sorted(own - set(sd)), sorted(set(sd) - own)
+    if missing or stray:
+        raise RuntimeError(f"motion checkpoint {path}: missing keys {missing[:5]}, "
+                           f"keys that map to no motion module {stray[:5]}")
+    unet.load_state_dict(sd, strict=False)
+
+
 def load_pretrained(path: str, unet=None, vae=None, text_encoder=None, transformer=None,
                     text_encoder_2=None, text_encoder_3=None) -> None:
     """Load each given module from its diffusers subfolder of ``path``
     (``unet``, ``vae``, ``text_encoder``; SD3: ``transformer``,
-    ``text_encoder_2``, ``text_encoder_3``) with ``strict=True``
+    ``text_encoder_2``, ``text_encoder_3``) with :func:`load_strict`
     (diffusers/transformers layout, as ``scripts/make_synthetic_checkpoints.py``
     writes it). A module whose folder is missing raises."""
     for sub, module in (("unet", unet), ("vae", vae), ("text_encoder", text_encoder),
@@ -334,4 +445,4 @@ def load_pretrained(path: str, unet=None, vae=None, text_encoder=None, transform
         weights = _find_weights(os.path.join(path, sub))
         if weights is None:
             raise FileNotFoundError(f"no weights file under {os.path.join(path, sub)}")
-        module.load_state_dict(load_state_dict_file(weights), strict=True)
+        load_strict(module, load_state_dict_file(weights), sub)

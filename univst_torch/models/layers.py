@@ -61,7 +61,8 @@ class StyleCtx:
     Three modes:
       * plain shift (``cfg`` set): 3-branch batch [content | style | stylized];
       * inject (``style_kv`` set): 2-branch batch [content | stylized] with the
-        style branch's K/V precomputed per PnP slot, each ``[1, L, D]``;
+        style branch's K/V precomputed per PnP slot, each ``[1, L, D]`` (a
+        single style frame) or ``[F, L, D]`` (one per frame);
       * capture (``capture=True``): each PnP attn1 records its projected K/V
         in ``captured[slot]``; no shift is applied.
     """
@@ -218,17 +219,65 @@ class CrossAttention(nn.Module):
         return self.to_out[0](out)
 
 
-class PseudoConv3d(nn.Conv2d):
-    """The pseudo-3D conv's spatial part (reference resnet.py:12-80).
+class TemporalSelfAttention(nn.Module):
+    """Attention over the frame axis at each spatial location (reference
+    attention.py:225-233): q/k/v projections on ``[B*F, L, D]``, then one
+    attention per (video, token, head) over that video's F frames. The
+    reference initializes ``to_out`` to zero, so the inflated SD model equals
+    the 2D model until temporal weights load."""
 
-    Its temporal tap is dirac-initialized and no 2D checkpoint carries
-    weights for it, so the SD path elides it (``temporal_identity``, the
-    JAX package's default for SD); the inflated form comes with the
-    AnimateDiff slice. The weight keeps the diffusers ``Conv2d`` key.
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.to_q = nn.Linear(dim, dim, bias=False)
+        self.to_k = nn.Linear(dim, dim, bias=False)
+        self.to_v = nn.Linear(dim, dim, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
+
+    def forward(self, x, num_frames: int):
+        bf, l, d = x.shape
+        f, h = num_frames, self.num_heads
+        b, dh = bf // f, d // h
+
+        def frames(t):  # [B*F, L, D] -> [B*L, H, F, dh]
+            return t.reshape(b, f, l, h, dh).permute(0, 2, 3, 1, 4).reshape(b * l, h, f, dh)
+
+        # a plain batched product in the JAX package (no Pallas kernel);
+        # PyTorch's fused attention here
+        out = F.scaled_dot_product_attention(frames(self.to_q(x)), frames(self.to_k(x)),
+                                             frames(self.to_v(x)))
+        return self.to_out[0](out.reshape(b, l, h, f, dh).permute(0, 3, 1, 2, 4).reshape(bf, l, d))
+
+
+class PseudoConv3d(nn.Conv2d):
+    """The pseudo-3D conv (reference resnet.py:12-80): a 2D conv on each
+    frame, then, with ``temporal``, a 1D conv over the frame axis at each
+    pixel (``conv_temporal``; dirac-initialized, so the pair equals the 2D
+    conv until temporal weights load; none for 1x1 convs or single frames).
+    No 2D checkpoint carries that tap and nothing trains it, so the SD path
+    elides it (``temporal_identity``, the JAX package's default for SD).
+    The weight keeps the diffusers ``Conv2d`` key.
     """
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1):
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
+                 temporal: bool = False):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride, padding=kernel_size // 2)
+        self.conv_temporal = None
+        if temporal and kernel_size > 1:
+            self.conv_temporal = nn.Conv1d(out_ch, out_ch, kernel_size, padding=kernel_size // 2)
+            with torch.no_grad():
+                nn.init.dirac_(self.conv_temporal.weight)
+                nn.init.zeros_(self.conv_temporal.bias)
+
+    def forward(self, x, num_frames: int = 1):
+        x = super().forward(x)
+        if self.conv_temporal is None or num_frames <= 1:
+            return x
+        bf, c, h, w = x.shape
+        b = bf // num_frames
+        xt = x.reshape(b, num_frames, c, h * w).permute(0, 3, 2, 1).reshape(b * h * w, c, num_frames)
+        xt = self.conv_temporal(xt).reshape(b, h * w, c, num_frames)
+        return xt.permute(0, 3, 2, 1).reshape(bf, c, h, w)
 
 
 def upsample_nearest_2x(x):

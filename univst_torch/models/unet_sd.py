@@ -6,8 +6,8 @@ spatial attention, text cross-attention, and the PnP style shift on the 8
 registered decoder attn1 layers. The temporal layers of the inflated model
 (dirac temporal convs, zero-init temporal attention) are exact no-ops in
 this training-free method, and the SD path elides them
-(``temporal_identity``, as the JAX package builds SD); the inflated form
-comes with the AnimateDiff slice.
+(``temporal_identity``, as the JAX package builds SD);
+``temporal_identity=False`` builds the inflated form.
 
 Attribute names follow diffusers' ``UNet2DConditionModel`` so the released
 (and the JAX package's synthetic) checkpoints load with ``strict=True``.
@@ -31,6 +31,7 @@ from univst_torch.models.layers import (
     PseudoConv3d,
     SelfAttention,
     StyleCtx,
+    TemporalSelfAttention,
     TimestepEmbedMLP,
     VideoCtx,
     timestep_embedding,
@@ -72,7 +73,8 @@ class UNetSDConfig:
     # up block whose output feeds mask propagation; None disables capture
     # (reference default 2, run_content_inversion_sd.py:88)
     capture_up_block: Optional[int] = None
-    # the temporal layers are exact no-ops and elided (see module doc)
+    # the temporal layers are exact no-ops and elided (see module doc);
+    # False builds them (the JAX package's UNetSDConfig default)
     temporal_identity: bool = True
 
     @staticmethod
@@ -95,11 +97,12 @@ class UNetSDConfig:
 
 
 class TransformerBlock(nn.Module):
-    """Sparse-causal self-attn -> text cross-attn -> GEGLU FF
-    (reference attention.py:156-346, temporal attention elided)."""
+    """Sparse-causal self-attn -> text cross-attn -> GEGLU FF -> temporal
+    attn (reference attention.py:156-346; the temporal attention only with
+    ``temporal_attn``)."""
 
     def __init__(self, dim: int, context_dim: int, num_heads: int, apply_pnp: bool,
-                 pnp_slot: Optional[int]):
+                 pnp_slot: Optional[int], temporal_attn: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn1 = SelfAttention(dim, num_heads, apply_pnp=apply_pnp, pnp_slot=pnp_slot)
@@ -107,11 +110,18 @@ class TransformerBlock(nn.Module):
         self.attn2 = CrossAttention(dim, context_dim, num_heads)
         self.norm3 = nn.LayerNorm(dim, eps=1e-6)
         self.ff = FeedForwardGEGLU(dim)
+        if temporal_attn:
+            self.norm_temporal = nn.LayerNorm(dim, eps=1e-6)
+            self.attn_temporal = TemporalSelfAttention(dim, num_heads)
+        self.temporal_attn = temporal_attn
 
     def forward(self, x, context, video_ctx: VideoCtx, style_ctx: Optional[StyleCtx]):
         x = x + self.attn1(self.norm1(x), video_ctx, style_ctx)
         x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff(self.norm3(x))
+        x = x + self.ff(self.norm3(x))
+        if self.temporal_attn and video_ctx.is_video:
+            x = x + self.attn_temporal(self.norm_temporal(x), video_ctx.num_frames)
+        return x
 
 
 class SpatioTemporalTransformer(nn.Module):
@@ -119,7 +129,7 @@ class SpatioTemporalTransformer(nn.Module):
     reference attention.py:40-153 (diffusers Transformer2DModel keys)."""
 
     def __init__(self, dim: int, cfg: UNetSDConfig, num_heads: int, apply_pnp: bool = False,
-                 pnp_slot: Optional[int] = None):
+                 pnp_slot: Optional[int] = None, temporal_attn: bool = False):
         super().__init__()
         self.linear = cfg.use_linear_projection
         self.norm = GroupNorm(dim, cfg.norm_num_groups, eps=1e-6)
@@ -130,7 +140,8 @@ class SpatioTemporalTransformer(nn.Module):
             self.proj_in = nn.Conv2d(dim, dim, 1)
             self.proj_out = nn.Conv2d(dim, dim, 1)
         self.transformer_blocks = nn.ModuleList(
-            [TransformerBlock(dim, cfg.cross_attention_dim, num_heads, apply_pnp, pnp_slot)])
+            [TransformerBlock(dim, cfg.cross_attention_dim, num_heads, apply_pnp, pnp_slot,
+                              temporal_attn)])
 
     def forward(self, x, context, video_ctx: VideoCtx, style_ctx: Optional[StyleCtx]):
         bf, c, hh, ww = x.shape
@@ -154,21 +165,22 @@ class ResnetBlockP3D(nn.Module):
     """ResnetBlockPseudo3D (reference resnet.py:239-397); GroupNorm statistics
     span frames (torch 5D GroupNorm semantics)."""
 
-    def __init__(self, in_ch: int, out_ch: int, temb_dim: int, groups: int):
+    def __init__(self, in_ch: int, out_ch: int, temb_dim: int, groups: int,
+                 temporal: bool = False):
         super().__init__()
         self.norm1 = GroupNorm(in_ch, groups, eps=1e-5, across_frames=True)
-        self.conv1 = PseudoConv3d(in_ch, out_ch, 3)
+        self.conv1 = PseudoConv3d(in_ch, out_ch, 3, temporal=temporal)
         self.time_emb_proj = nn.Linear(temb_dim, out_ch)
         self.norm2 = GroupNorm(out_ch, groups, eps=1e-5, across_frames=True)
-        self.conv2 = PseudoConv3d(out_ch, out_ch, 3)
+        self.conv2 = PseudoConv3d(out_ch, out_ch, 3, temporal=temporal)
         self.conv_shortcut = PseudoConv3d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x, temb, num_frames: int):
-        h = self.conv1(F.silu(self.norm1(x, num_frames)))
+        h = self.conv1(F.silu(self.norm1(x, num_frames)), num_frames)
         # temb is per video [B, C]: one copy per frame
         t = self.time_emb_proj(F.silu(temb)).repeat_interleave(num_frames, dim=0)
         h = h + t[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h, num_frames)))
+        h = self.conv2(F.silu(self.norm2(h, num_frames)), num_frames)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -177,23 +189,25 @@ class ResnetBlockP3D(nn.Module):
 class _Sampler(nn.Module):
     """Holds the diffusers ``{down,up}samplers.0.conv`` key."""
 
-    def __init__(self, ch: int, stride: int):
+    def __init__(self, ch: int, stride: int, temporal: bool = False):
         super().__init__()
-        self.conv = PseudoConv3d(ch, ch, 3, stride=stride)
+        self.conv = PseudoConv3d(ch, ch, 3, stride=stride, temporal=temporal)
 
 
 class DownBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, temb_dim: int, num_heads: int, has_attn: bool,
                  add_downsample: bool, cfg: UNetSDConfig):
         super().__init__()
-        n = cfg.layers_per_block
+        n, tmp = cfg.layers_per_block, not cfg.temporal_identity
         self.resnets = nn.ModuleList(
-            [ResnetBlockP3D(in_ch if i == 0 else out_ch, out_ch, temb_dim, cfg.norm_num_groups)
-             for i in range(n)])
+            [ResnetBlockP3D(in_ch if i == 0 else out_ch, out_ch, temb_dim, cfg.norm_num_groups,
+                            tmp) for i in range(n)])
         self.attentions = nn.ModuleList(
-            [SpatioTemporalTransformer(out_ch, cfg, num_heads) for _ in range(n)]
+            [SpatioTemporalTransformer(out_ch, cfg, num_heads, temporal_attn=tmp)
+             for _ in range(n)]
         ) if has_attn else None
-        self.downsamplers = nn.ModuleList([_Sampler(out_ch, 2)]) if add_downsample else None
+        self.downsamplers = (nn.ModuleList([_Sampler(out_ch, 2, tmp)]) if add_downsample
+                             else None)
 
     def forward(self, x, temb, context, video_ctx, style_ctx, skips: List[torch.Tensor]):
         for i, res in enumerate(self.resnets):
@@ -202,7 +216,7 @@ class DownBlock(nn.Module):
                 x = self.attentions[i](x, context, video_ctx, style_ctx)
             skips.append(x)
         if self.downsamplers is not None:
-            x = self.downsamplers[0].conv(x)
+            x = self.downsamplers[0].conv(x, video_ctx.num_frames)
             skips.append(x)
         return x
 
@@ -210,9 +224,11 @@ class DownBlock(nn.Module):
 class MidBlock(nn.Module):
     def __init__(self, ch: int, temb_dim: int, num_heads: int, cfg: UNetSDConfig):
         super().__init__()
+        tmp = not cfg.temporal_identity
         self.resnets = nn.ModuleList(
-            [ResnetBlockP3D(ch, ch, temb_dim, cfg.norm_num_groups) for _ in range(2)])
-        self.attentions = nn.ModuleList([SpatioTemporalTransformer(ch, cfg, num_heads)])
+            [ResnetBlockP3D(ch, ch, temb_dim, cfg.norm_num_groups, tmp) for _ in range(2)])
+        self.attentions = nn.ModuleList(
+            [SpatioTemporalTransformer(ch, cfg, num_heads, temporal_attn=tmp)])
 
     def forward(self, x, temb, context, video_ctx, style_ctx):
         x = self.resnets[0](x, temb, video_ctx.num_frames)
@@ -224,8 +240,9 @@ class UpBlock(nn.Module):
     def __init__(self, block_index: int, in_chs: List[int], out_ch: int, temb_dim: int,
                  num_heads: int, has_attn: bool, add_upsample: bool, cfg: UNetSDConfig):
         super().__init__()
+        tmp = not cfg.temporal_identity
         self.resnets = nn.ModuleList(
-            [ResnetBlockP3D(c, out_ch, temb_dim, cfg.norm_num_groups) for c in in_chs])
+            [ResnetBlockP3D(c, out_ch, temb_dim, cfg.norm_num_groups, tmp) for c in in_chs])
         self.attentions = None
         if has_attn:
             mods = []
@@ -233,9 +250,10 @@ class UpBlock(nn.Module):
                 is_pnp = (block_index, i) in PNP_UP_ATTENTIONS
                 mods.append(SpatioTemporalTransformer(
                     out_ch, cfg, num_heads, apply_pnp=is_pnp,
-                    pnp_slot=PNP_SLOT_ORDER.index((block_index, i)) if is_pnp else None))
+                    pnp_slot=PNP_SLOT_ORDER.index((block_index, i)) if is_pnp else None,
+                    temporal_attn=tmp))
             self.attentions = nn.ModuleList(mods)
-        self.upsamplers = nn.ModuleList([_Sampler(out_ch, 1)]) if add_upsample else None
+        self.upsamplers = nn.ModuleList([_Sampler(out_ch, 1, tmp)]) if add_upsample else None
 
     def forward(self, x, skips: List[torch.Tensor], temb, context, video_ctx, style_ctx):
         for i, res in enumerate(self.resnets):
@@ -243,7 +261,7 @@ class UpBlock(nn.Module):
             if self.attentions is not None:
                 x = self.attentions[i](x, context, video_ctx, style_ctx)
         if self.upsamplers is not None:
-            x = self.upsamplers[0].conv(upsample_nearest_2x(x))
+            x = self.upsamplers[0].conv(upsample_nearest_2x(x), video_ctx.num_frames)
         return x
 
 
@@ -259,14 +277,13 @@ class UNetPseudo3D(nn.Module):
 
     def __init__(self, cfg: UNetSDConfig):
         super().__init__()
-        if not cfg.temporal_identity:
-            raise NotImplementedError("the inflated temporal layers are not ported yet")
         self.cfg = cfg
+        tmp = not cfg.temporal_identity
         boc = cfg.block_out_channels
         ch0 = boc[0]
         temb_dim = ch0 * 4
         n = len(boc)
-        self.conv_in = PseudoConv3d(cfg.in_channels, ch0, 3)
+        self.conv_in = PseudoConv3d(cfg.in_channels, ch0, 3, temporal=tmp)
         self.time_embedding = TimestepEmbedMLP(ch0, temb_dim)
         skip_chs = [ch0]
         downs, prev = [], ch0
@@ -288,7 +305,7 @@ class UNetPseudo3D(nn.Module):
                                cfg.up_block_has_attn[i], i < n - 1, cfg))
         self.up_blocks = nn.ModuleList(ups)
         self.conv_norm_out = GroupNorm(ch0, cfg.norm_num_groups, eps=1e-5, across_frames=True)
-        self.conv_out = PseudoConv3d(ch0, cfg.out_channels, 3)
+        self.conv_out = PseudoConv3d(ch0, cfg.out_channels, 3, temporal=tmp)
 
     def forward(self, x, timestep, context, video_ctx: VideoCtx,
                 style_ctx: Optional[StyleCtx] = None):
@@ -301,7 +318,7 @@ class UNetPseudo3D(nn.Module):
         temb = self.time_embedding(t_emb.to(dtype))
         context = context.to(dtype)
 
-        h = self.conv_in(x.to(dtype).permute(0, 3, 1, 2))
+        h = self.conv_in(x.to(dtype).permute(0, 3, 1, 2), f)
         skips = [h]
         for blk in self.down_blocks:
             h = blk(h, temb, context, video_ctx, style_ctx, skips)
@@ -316,5 +333,5 @@ class UNetPseudo3D(nn.Module):
                 # reference saves sample[0] as [F, H, W, C]
                 # (unet_3d_condition.py:429-436); batch element 0 == branch 0
                 captured = h[:f].permute(0, 2, 3, 1)
-        h = self.conv_out(F.silu(self.conv_norm_out(h, f)))
+        h = self.conv_out(F.silu(self.conv_norm_out(h, f)), f)
         return h.permute(0, 2, 3, 1), captured

@@ -81,7 +81,12 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> None:
 
 @dataclasses.dataclass
 class SDVideoPipeline:
-    unet: UNetPseudo3D
+    """Also serves AnimateDiff (``pipelines/animatediff.py::build_animatediff``):
+    the two epsilon backbones share every stage; the denoiser module, the
+    DDIM beta schedule, the shift constants and the frame-index sets
+    differ."""
+
+    unet: nn.Module  # UNetPseudo3D | UNetAnimateDiff (same call signature)
     vae: AutoencoderKL
     text_encoder: CLIPTextModel
     tokenizer: Tokenizer
@@ -92,6 +97,17 @@ class SDVideoPipeline:
     style_shift_cfg: StyleShiftConfig = SD_STYLE_SHIFT
     base_frame_indices: tuple = SD_BASE_FRAME_INDICES
     pnp_frame_indices: tuple = SD_PNP_FRAME_INDICES
+    # Run the style branch as a single frame with its PnP K/V computed for
+    # all steps in one batched pre-pass: exact when the style trajectory's
+    # frames are identical (a repeated style image). False for AnimateDiff,
+    # whose motion modules give each frame its own position, and for a
+    # style trajectory whose frames differ.
+    style_singleton: bool = True
+    # Off the singleton path, capture the style branch's K/V for this many
+    # steps in one [chunk*F]-row forward (steps batch as extra videos: the
+    # frame positions vary per frame, not per step). None: one F-row capture
+    # forward per step.
+    style_prepass_chunk: Optional[int] = None
 
     # -- construction --------------------------------------------------------
 
@@ -247,33 +263,53 @@ class SDVideoPipeline:
                         mask=None, cfg: StyleTransferConfig = StyleTransferConfig(),
                         style_cfg: Optional[StyleShiftConfig] = None):
         """Stylization (reference video_style_transfer,
-        stable_diffusion.py:630-766) on the style-singleton path.
+        stable_diffusion.py:630-766): a multi-branch phase 1 inside the shift
+        window, then phase 2 — past it, where the content and style branches
+        are dead compute — the stylized branch alone.
 
-        Style-trajectory frames are identical (a repeated style image), so the
-        style branch runs once as a single frame: a batched pre-pass computes
-        its PnP K/V for every multi-branch step, phase 1 runs the 2-branch
-        [content | stylized] batch with that K/V injected, and phase 2 — past
-        the shift window, where the other branches are dead compute — the
-        stylized branch alone.
+        Phase 1 on the style-singleton path (``style_singleton``): the style
+        branch runs once as a single frame; a batched pre-pass computes its
+        PnP K/V for every phase-1 step and the 2-branch [content | stylized]
+        batch gets that K/V injected. Otherwise capture-and-inject: per step
+        an F-row style forward captures the K/V (or one forward per
+        ``style_prepass_chunk`` steps), then the injected 2-branch batch.
         """
         scfg = style_cfg if style_cfg is not None else self.style_shift_cfg
         n = cfg.num_steps
         ts = self.schedule.timesteps(n)
         dev = self.device
         content_traj_rev = content_traj_rev.to(dev)
-        style_traj_rev = style_traj_rev[:, :1].to(dev)
+        style_traj_rev = style_traj_rev.to(dev)
         mask = None if mask is None else torch.as_tensor(mask, device=dev)
         context3 = context3.to(dev)
 
         phase1, phase2 = phase_segments(n, scfg.window_end())
         k1 = phase2[0][0] if phase2 else n
         latents = init_latents.to(dev).float()
-        if phase1:
-            style_kv_all = self._style_prepass(style_traj_rev, ts[:k1], context3, k1)
+        if self.style_singleton:
+            style_traj_rev = style_traj_rev[:, :1]
+            if phase1:
+                style_kv_all = self._style_prepass(style_traj_rev, ts[:k1], context3, k1)
             for s0, c in phase1:
                 latents = self._stylize_chunk_singleton(content_traj_rev, style_traj_rev,
                                                         style_kv_all, latents, ts, s0, context3,
                                                         mask, cfg, scfg, c)
+        else:
+            # the full per-frame style latents: the AdaIN re-anchor's
+            # statistics span frames (latent_adain dims [0, 3, 4])
+            if style_traj_rev.shape[1] == 1 and self.num_frames > 1:
+                style_traj_rev = style_traj_rev.expand(-1, content_traj_rev.shape[1], -1, -1, -1)
+            pc = self.style_prepass_chunk
+            for s0, c in phase1:
+                if pc:
+                    for t0 in range(s0, s0 + c, pc):
+                        latents = self._stylize_chunk_prepass(
+                            content_traj_rev, style_traj_rev, latents, ts, t0, context3, mask,
+                            cfg, scfg, min(pc, s0 + c - t0))
+                else:
+                    latents = self._stylize_chunk_capture(content_traj_rev, style_traj_rev,
+                                                          latents, ts, s0, context3, mask, cfg,
+                                                          scfg, c)
         for s0, c in phase2:
             latents = self._stylize_chunk_solo(content_traj_rev, style_traj_rev, latents, ts,
                                                s0, context3, mask, cfg, c)
@@ -297,13 +333,68 @@ class SDVideoPipeline:
                                    self.pnp_frame_indices, style_cfg)
 
         def denoise2(x2, t, i, kv):
-            return denoise(x2, t, i, style_kv=kv)[0]
+            # the step's single-frame K/V, injected as [1, L, D]
+            return denoise(x2, t, i, style_kv=tuple((k[None], v[None]) for k, v in kv))[0]
 
         sl = slice(s0, s0 + chunk)
         return style_transfer_ddim_steps(
             denoise2, content[sl], style[sl], latents, range(s0, s0 + chunk), ts[sl],
             self.schedule, cfg, mask=mask,
             style_kv=tuple((k[sl], v[sl]) for k, v in style_kv_all))
+
+    def _stylize_vctx(self, num_frames: int) -> VideoCtx:
+        """The stylization forward's video context: the patched decoder
+        layers use the PnP index set, the rest the model default."""
+        return VideoCtx(num_frames=num_frames, frame_indices=self.base_frame_indices,
+                        pnp_frame_indices=self.pnp_frame_indices)
+
+    def _stylize_chunk_capture(self, content, style, latents, ts, s0, context3, mask, cfg,
+                               style_cfg, chunk):
+        """Phase-1 segment, capture-and-inject: per step, the style branch
+        alone (F rows) records its PnP K/V, then the 2-branch [content |
+        stylized] batch runs with that ``[F, L, D]`` K/V injected. Exact
+        against the 3-branch batch: the branches couple only through the
+        attention shift, which reads the style branch's raw projected K/V
+        (pnp_utils.py:47-57); unlike the singleton pre-pass it needs no
+        identical style frames."""
+        denoise = self._denoise_fn(torch.cat([context3[:1], context3[2:3]]),
+                                   self.pnp_frame_indices, style_cfg)
+        vctx, ctx_sty = self._stylize_vctx(self.num_frames), context3[1:2]
+
+        def denoise2(x2, t, i, sty_lat):
+            sctx = StyleCtx(step_idx=i, cfg=style_cfg, capture=True)
+            self.unet(sty_lat.to(self.dtype), t, ctx_sty, vctx, sctx)
+            return denoise(x2, t, i, style_kv=extract_pnp_kv(sctx.captured))[0]
+
+        sl = slice(s0, s0 + chunk)
+        return style_transfer_ddim_steps(
+            denoise2, content[sl], style[sl], latents, range(s0, s0 + chunk), ts[sl],
+            self.schedule, cfg, mask=mask, capture=True)
+
+    def _stylize_chunk_prepass(self, content, style, latents, ts, s0, context3, mask, cfg,
+                               style_cfg, chunk):
+        """Batched form of :meth:`_stylize_chunk_capture`: the style branch's
+        PnP K/V of all ``chunk`` steps from one ``[chunk*F]``-row forward,
+        each step a video of its own with its own timestep (every op is per
+        row or per F-row video, and the frame positions repeat per video),
+        then the injected 2-branch steps."""
+        f, sl = self.num_frames, slice(s0, s0 + chunk)
+        style_seg = style[sl]
+        sctx = StyleCtx(step_idx=0, cfg=style_cfg, capture=True)
+        self.unet(style_seg.reshape((chunk * f,) + style_seg.shape[2:]).to(self.dtype),
+                  torch.as_tensor(np.ascontiguousarray(ts[sl]), device=self.device),
+                  context3[1:2].expand(chunk * f, -1, -1), self._stylize_vctx(f), sctx)
+        kv_all = tuple((k.reshape((chunk, f) + k.shape[1:]), v.reshape((chunk, f) + v.shape[1:]))
+                       for k, v in extract_pnp_kv(sctx.captured))
+        denoise = self._denoise_fn(torch.cat([context3[:1], context3[2:3]]),
+                                   self.pnp_frame_indices, style_cfg)
+
+        def denoise2(x2, t, i, kv_t):
+            return denoise(x2, t, i, style_kv=kv_t)[0]
+
+        return style_transfer_ddim_steps(
+            denoise2, content[sl], style_seg, latents, range(s0, s0 + chunk), ts[sl],
+            self.schedule, cfg, mask=mask, style_kv=kv_all)
 
     def _stylize_chunk_solo(self, content, style, latents, ts, s0, context3, mask, cfg, chunk):
         """Phase-2 segment: the stylized branch alone (the shift gate is off,
