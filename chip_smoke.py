@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SD-1.5, AnimateDiff-v2 and SD3 workflows on one
-NVIDIA GPU.
+"""Drive the PyTorch port's SD-1.5 (with and without the pixel smoother),
+AnimateDiff-v2 and SD3 workflows on one NVIDIA GPU.
 
     python3 chip_smoke.py [--steps N] [--ad_steps N] [--sd3_steps N]
 
@@ -34,7 +34,22 @@ none catches its own failure:
    forward and the injected 2-branch forward, per phase-2 step one
    forward: K1 must launch 10 x (2 k1 + (n - k1)) times (k1 = the shift
    window's end, 26 of 30 steps: 560), K2 never; the latents finite.
-6. AnimateDiff-v2 path: ``build_animatediff`` at full width (the SD-1.5 2D
+   Then the SD round trip once with AnimateDiff's linear betas (its PSNR),
+   and an on-card Lucas-Kanade check (a smooth 512x512 image shifted by 2
+   px: the flow recovers the shift).
+6. SD-1.5 with the pixel smoother: the same pipeline, trajectories and
+   masks, ``smoother='pixel'``, LK flow, smoothing steps [20, 25), radius
+   2. Phase 1 is the style-singleton path (one single-frame style pre-pass,
+   then the injected 2-branch step) for max(26, 25) = 26 steps, then 4
+   stylized-only steps: K1 must launch 10 x n = 300 times, K2 never; each
+   smoothing step decodes x0, runs 2 x 58 LK flows, warp-averages and
+   re-encodes. The stylization's seconds are split into the pre-pass, the
+   2-branch and solo forwards, decode, flow, warp-average and encode; the
+   latents must be finite and differ from the unsmoothed stylization.
+7. RAFT-large (random weights from seed 0, fp32) on the 116 flows of one
+   smoothing step's decoded frames in one batch, and on one pair: ms per
+   call, peak memory, every flow finite, one pair against the CPU.
+8. AnimateDiff-v2 path: ``build_animatediff`` at full width (the SD-1.5 2D
    UNet, 21 motion modules of 8 heads with a 24-frame position table, SVD
    VAE, CLIP-L; bf16, seeded random weights, every motion module's
    ``proj_out`` filled from seed 1 so the temporal path reaches the
@@ -42,8 +57,12 @@ none catches its own failure:
    feature captured, 16-frame style inversion, mask propagation,
    capture-and-inject stylization from the raw content noise, chunked
    decode, inversion -> reconstruction round trip. This backbone builds no
-   cross-frame K/V: K1 and K2 must launch 0 times.
-7. SD3 path: ``SD3VideoPipeline`` at SD3-medium widths (24 blocks, 24 heads
+   cross-frame K/V: K1 and K2 must launch 0 times. After the timed path,
+   with every ``proj_out`` back at zero (the reference's init: the motion
+   modules are identities), the round-trip PSNR on the same latents and
+   prompt along a ladder that turns the AD UNet into the SD path's UNet one
+   difference at a time (``[ad_psnr]``).
+9. SD3 path: ``SD3VideoPipeline`` at SD3-medium widths (24 blocks, 24 heads
    of 64, T5-XXL, CLIP-L and CLIP-G; bf16, seeded random weights), 1024 px,
    16 frames: prompt encoding (then the text encoders are freed), VAE
    encode, RF-Solver content inversion with the block-20 feature captured
@@ -54,7 +73,9 @@ none catches its own failure:
    (inversion's two forwards, the reconstruction, one stylization forward;
    single-frame forwards run no video attention), K1 never.
 
-Each path's launch counters are zeroed just before it and read just after.
+Each path's launch counters are zeroed just before it and read just after;
+K1's ``launches`` in the JSON line is the sum over the SD, SD-fallback and
+smoother paths, each path's own count under ``launches_by_path``.
 The last line is ``{"ok": true, "device": {...}}``; the lines before it hold
 the per-kernel JSON and the card's name and power limit. Any failed check
 exits non-zero. ``--steps`` (SD-1.5) and ``--ad_steps`` default to 30 and
@@ -415,12 +436,19 @@ def _check_outputs(tensors, masks, video, nf, px, z0, rec):
         raise AssertionError(f"frames {tuple(video.shape)} {video.dtype}")
     if not video.float().std().item() > 0:
         raise AssertionError("stylized frames are constant")
-    z0 = z0.double()
-    mse = ((rec.double() - z0) ** 2).mean().item()
-    psnr = 10 * np.log10((z0.max() - z0.min()).item() ** 2 / mse) if mse > 0 else float("inf")
+    psnr = _latent_psnr(z0, rec)
     if not np.isfinite(psnr):
         raise AssertionError(f"reconstruction latent PSNR {psnr}")
     return psnr
+
+
+def _latent_psnr(z0, rec) -> float:
+    """PSNR of ``rec`` against ``z0`` over ``z0``'s value range, in dB."""
+    import numpy as np
+
+    z0 = z0.double()
+    mse = ((rec.double() - z0) ** 2).mean().item()
+    return 10 * np.log10((z0.max() - z0.min()).item() ** 2 / mse) if mse > 0 else float("inf")
 
 
 def _check_launches(launches, want):
@@ -518,7 +546,7 @@ def phase_main_path(steps: int):
                    masks_foreground=float((masks > 0).float().mean().item()),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"[main] {json.dumps(summary)}", flush=True)
-    return launches, (pipe, traj, ctx, masks)
+    return launches, (pipe, traj, straj, ctx, masks, out)
 
 
 def phase_sd_fallback(sd_state, steps: int):
@@ -530,7 +558,7 @@ def phase_sd_fallback(sd_state, steps: int):
     from univst_torch.core.adain import latent_adain
     from univst_torch.core.config import StyleTransferConfig
 
-    pipe, traj, ctx, masks = sd_state
+    pipe, traj, _, ctx, masks, _ = sd_state
     pipe = dataclasses.replace(pipe, style_singleton=False)
     content_rev = torch.flip(traj, dims=[0])
     counters = _zero_counters()
@@ -553,6 +581,220 @@ def phase_sd_fallback(sd_state, steps: int):
         steps=steps, frames=pipe.num_frames, phase1_steps=k1, stage_s={"stylize": stylize_s},
         stylize_frames_per_s=pipe.num_frames / stylize_s, launches=launches)), flush=True)
     return launches
+
+
+def phase_lk_shift(device: str = "cuda"):
+    """The built-in Lucas-Kanade flow on the card recovers a known shift: a
+    smooth 512x512 image against itself rolled by 2 px along x (the
+    interior's mean x flow within 0.5 px of -2, the bar of
+    ``tests/test_flow.py``), and the warp by that flow closes the loop."""
+    import torch
+
+    from univst_torch.methods.flow import lucas_kanade_flow, warp_image_with_flow
+
+    px, shift = 512, 2
+    gen = torch.Generator(device=device).manual_seed(0)
+    small = torch.randn((1, 3, px // 8, px // 8), generator=gen, device=device)
+    img = torch.nn.functional.interpolate(small, size=(px, px), mode="bicubic",
+                                          align_corners=False)[0].permute(1, 2, 0)
+    img = (img - img.min()) / (img.max() - img.min())
+    img2 = torch.roll(img, -shift, dims=1)  # img2(x) = img(x + shift)
+    flow = lucas_kanade_flow(img, img2)
+    _sync()
+    mean_dx = flow[128:-128, 128:-128, 0].mean().item()
+    mean_dy = flow[128:-128, 128:-128, 1].mean().item()
+    loop = (warp_image_with_flow(img2, flow) - img)[16:-16, 16:-16].abs().mean().item()
+    print("[lk] " + json.dumps(dict(size=px, shift_px=shift, interior_mean_flow=[mean_dx, mean_dy],
+                                    warp_loop_mean_abs=loop)), flush=True)
+    if not (abs(mean_dx + shift) < 0.5 and abs(mean_dy) < 0.5 and loop < 0.03):
+        raise AssertionError(f"LK on the card: mean flow ({mean_dx}, {mean_dy}) for a shift of "
+                             f"(-{shift}, 0), warp loop error {loop}")
+
+
+def _timed(fn, acc: dict, key: str):
+    """``fn`` with its synchronised wall time added to ``acc[key]``."""
+    def wrapper(*a, **kw):
+        _sync()
+        t = time.time()
+        out = fn(*a, **kw)
+        _sync()
+        acc[key] = acc.get(key, 0.0) + time.time() - t
+        return out
+    return wrapper
+
+
+def phase_smooth(sd_state, steps: int):
+    """The pixel smoother on the card: the SD phase's pipeline, content and
+    style trajectories and propagated masks, stylized with
+    ``smoother='pixel'``, LK flow, smoothing steps [20, 25), radius 2. Phase
+    1 (the style pre-pass, then the injected 2-branch step) runs up to
+    max(the shift window's end, 25); each smoothing step decodes x0 (16
+    frames), runs 2 x 58 LK flows in one batch, warp-averages and
+    re-encodes. The split
+    of the stylization's seconds comes from synchronised wrappers around
+    the UNet forward, the decode, the flow, the smoother and the encode.
+    Returns the K1/K2 launches and the frames of the first smoothing step
+    (for the RAFT phase)."""
+    import torch
+
+    import univst_torch.methods.flow as flow_mod
+    from univst_torch.core.adain import latent_adain
+    from univst_torch.core.config import StyleTransferConfig
+
+    pipe, traj, straj, ctx, masks, plain_out = sd_state
+    acc, first = {}, {}
+    pipe = dataclasses.replace(pipe, flow_fn=_timed(flow_mod.lucas_kanade_flow, acc, "flow"))
+    pipe._decode = _timed(pipe._decode, acc, "decode")
+    vae, unet = pipe.vae, pipe.unet
+    vae.encode = _timed(vae.encode, acc, "encode")
+    smooth_fn = flow_mod.sliding_window_smooth
+
+    def smooth(frames, *a, **kw):
+        first.setdefault("frames", frames.detach().clone())
+        return smooth_fn(frames, *a, **kw)
+
+    flow_mod.sliding_window_smooth = _timed(smooth, acc, "smooth")
+
+    def pre(_, args):
+        _sync()
+        acc["_t"] = time.time()
+
+    def post(_, args, out):
+        _sync()
+        rows = args[0].shape[0]
+        key = {2 * pipe.num_frames: "forward_2branch",
+               pipe.num_frames: "forward_solo"}.get(rows, "style_prepass")
+        acc[key] = acc.get(key, 0.0) + time.time() - acc.pop("_t")
+        acc["n_" + key] = acc.get("n_" + key, 0) + 1
+
+    hooks = [unet.register_forward_pre_hook(pre), unet.register_forward_hook(post)]
+    cfg = StyleTransferConfig(num_steps=steps, smoother="pixel", smoother_steps=(20, 25),
+                              smoother_radius=2)
+    content_rev = torch.flip(traj, dims=[0])
+    style_rev = torch.flip(straj, dims=[0])[:, :1]
+    try:
+        counters = _zero_counters()
+        t0 = time.time()
+        init = latent_adain(content_rev[0], style_rev[0])
+        out = pipe.stylize_latents(content_rev, style_rev, init, torch.cat([ctx] * 3),
+                                   mask=masks.float() / 255.0, cfg=cfg)
+        _sync()
+        stylize_s = time.time() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        for h in hooks:
+            h.remove()
+        del vae.encode
+        flow_mod.sliding_window_smooth = smooth_fn
+    if not torch.isfinite(out).all():
+        raise AssertionError("smoothed stylized latents have non-finite values")
+    diff = (out - plain_out).abs().max().item()
+    if not diff > 1e-2:
+        raise AssertionError(f"the smoother left the stylization unchanged (max diff {diff})")
+    # one 16-frame forward a step (2-branch in phase 1, stylized-only after),
+    # 10 K1 each; the single-frame style pre-pass runs no video attention
+    k1 = min(steps, max(pipe.style_shift_cfg.window_end(), cfg.smoother_steps[1]))
+    n_smooth = len(range(*cfg.smoother_steps))
+    _check_launches(launches, {"video_flash_attention": 10 * steps,
+                               "video_flash_attention_tokens": 0})
+    got = tuple(acc.get("n_" + k, 0) for k in ("style_prepass", "forward_2branch",
+                                               "forward_solo"))
+    if got != (1, k1, steps - k1):
+        raise AssertionError(f"forwards {acc}, want 1 pre-pass, {k1} 2-branch and "
+                             f"{steps - k1} solo")
+    split = {k: acc.get(k, 0.0) for k in ("style_prepass", "forward_2branch", "forward_solo",
+                                          "decode", "flow", "encode")}
+    split["warp_average"] = acc["smooth"] - acc["flow"]
+    split["other"] = stylize_s - sum(split.values())
+    print("[smooth] " + json.dumps(dict(
+        steps=steps, frames=pipe.num_frames, phase1_steps=k1, smoothing_steps=n_smooth,
+        radius=cfg.smoother_radius, flow="lk", flows_per_smoothing_step=2 * _window_pairs(
+            pipe.num_frames, cfg.smoother_radius), stylize_s=stylize_s, split_s=split,
+        stylize_frames_per_s=pipe.num_frames / stylize_s, max_abs_diff_vs_unsmoothed=diff,
+        launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)), flush=True)
+    return launches, first["frames"]
+
+
+def _window_pairs(f: int, radius: int) -> int:
+    """Directed (key, neighbor) frame pairs of a +/-radius window over f frames."""
+    return sum(1 for k in range(f) for b in range(-radius, radius + 1) if b and 0 <= k + b < f)
+
+
+def phase_raft(frames, radius: int = 2):
+    """RAFT-large (``RAFTConfig()``: 12 iterations, 4 correlation levels of
+    radius 4; fp32, TF32 off, weights from seed 0) on the flows of one
+    smoothing step: the decoded 16 frames of 512 px, every directed pair of
+    a +/-radius window in both directions (2 x 58 = 116 flows), in one
+    batched call as ``sliding_window_smooth`` makes it, and one pair alone.
+    Every flow must be finite; one pair's flow on the card is held against
+    the same module on the CPU."""
+    import torch
+
+    from univst_torch.models.raft import RAFT, RAFTConfig, make_raft_flow
+
+    torch.manual_seed(0)
+    cpu_model = RAFT(RAFTConfig()).eval()
+    model = RAFT(RAFTConfig()).eval().to(frames.device)
+    model.load_state_dict(cpu_model.state_dict())
+    flow_fn = make_raft_flow(model)
+    f = frames.shape[0]
+    pairs = [(k, k + b) for b in range(-radius, radius + 1) if b for k in range(f)
+             if 0 <= k + b < f]
+    keys = torch.tensor([k for k, _ in pairs], device=frames.device)
+    nows = torch.tensor([j for _, j in pairs], device=frames.device)
+    a = torch.cat([frames[keys], frames[nows]])
+    b = torch.cat([frames[nows], frames[keys]])
+    torch.cuda.reset_peak_memory_stats()
+    flows = flow_fn(a, b)
+    _sync()
+    batch_ms = _time_ms(lambda: flow_fn(a, b), 1)
+    peak_batch = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    one_ms = _time_ms(lambda: flow_fn(a[:1], b[:1]), 3)
+    peak_one = torch.cuda.max_memory_allocated() / 1e9
+    if not torch.isfinite(flows).all():
+        raise AssertionError("RAFT flows have non-finite values")
+    want = make_raft_flow(cpu_model)(a[:1].cpu(), b[:1].cpu())
+    err = (flows[:1].cpu() - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    print("[raft] " + json.dumps(dict(
+        size=list(frames.shape[1:3]), pairs=len(pairs), flows=len(a), iters=model.cfg.iters,
+        batch_ms=batch_ms, ms_per_flow_in_batch=batch_ms / len(a), ms_one_pair=one_ms,
+        peak_mem_gb_batch=peak_batch, peak_mem_gb_one_pair=peak_one,
+        max_abs_flow=flows.abs().max().item(), card_vs_cpu_max_abs_err=err,
+        card_vs_cpu_bar=1e-2 * scale)), flush=True)
+    if not err <= 1e-2 * scale:
+        raise AssertionError(f"RAFT on the card vs the CPU: max abs err {err} px")
+
+
+def _round_trip_psnr(pipe, z0, ctx, steps: int) -> float:
+    """DDIM inversion (EasyInv) of ``z0`` and the reconstruction back: the
+    latent PSNR."""
+    traj, _ = pipe.invert(z0, ctx, num_steps=steps, is_opt=True)
+    return _latent_psnr(traj[0], pipe.reconstruct_latents(traj[-1], ctx, num_steps=steps))
+
+
+def phase_sd_linear_betas(sd_state, steps: int):
+    """The SD path's inversion -> reconstruction round trip once more with
+    AnimateDiff's linear beta schedule in place of SD's scaled-linear one
+    (same pipeline, encoded latents and prompt): how much of the AD path's
+    lower PSNR the schedule alone accounts for."""
+    from univst_torch.core.scheduler import DDIMConfig, DDIMSchedule
+
+    pipe, traj, _, ctx, _, _ = sd_state
+    t0 = time.time()
+    linear = dataclasses.replace(pipe, schedule=DDIMSchedule(DDIMConfig(beta_schedule="linear")))
+    psnr = _round_trip_psnr(linear, traj[0], ctx, steps)
+    _sync()
+    print("[sd_linear_betas] " + json.dumps(dict(
+        steps=steps, recon_latent_psnr_db=psnr, **_latent_stats(traj[0]),
+        seconds=time.time() - t0)), flush=True)
+
+
+def _latent_stats(z0) -> dict:
+    """The value range and std of a start latent (the PSNR's scale)."""
+    z = z0.double()
+    return dict(z0_range=(z.max() - z.min()).item(), z0_std=z.std().item())
 
 
 def _fill_motion_proj_out(unet, seed: int) -> int:
@@ -583,12 +825,14 @@ def phase_ad(steps: int):
     t0 = time.time()
     pipe = build_animatediff(variant="ad", num_frames=nf, dtype=torch.bfloat16,
                              capture_up_block=2, seed=0, device=device)
+    _sync()
+    build_s = time.time() - t0
     n_mm = _fill_motion_proj_out(pipe.unet, seed=1)
     _sync()
     w_max = max(mm.temporal_transformer.proj_out.weight.abs().max().item()
                 for mm in pipe.unet.motion_modules())
     print(f"[ad] built AnimateDiff-v2 (SD-1.5 2D UNet + {n_mm} motion modules, SVD VAE, "
-          f"CLIP-L; random weights, seed 0) in {time.time() - t0:.1f}s; proj_out of all "
+          f"CLIP-L; random weights, seed 0) in {build_s:.1f}s; proj_out of all "
           f"{n_mm} motion modules filled from seed 1 (max |w| {w_max:.4g})", flush=True)
     ts = pipe.schedule.timesteps(steps)
     cap_t = 301 if 301 in ts else int(ts[len(ts) // 2])
@@ -638,7 +882,69 @@ def phase_ad(steps: int):
                    masks_foreground=float((masks > 0).float().mean().item()),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"[ad] {json.dumps(summary)}", flush=True)
+    _ad_psnr_ladder(pipe, latents, ctx, steps)
     return launches
+
+
+def _ad_psnr_ladder(pipe, z0, ctx, steps: int):
+    """Where the AD round trip's PSNR departs from the SD path's: with
+    every motion module's ``proj_out`` back at zero, the AD UNet is the
+    SD-1.5 UNet with per-frame GroupNorm and no cross-frame attention
+    (equal on the CPU to the last bit). The inversion -> reconstruction
+    round trip of the same start latent and prompt, with AD's linear betas
+    and in bf16, through: (a) the AD UNet (and in fp32); (b) the SD UNet
+    holding AD's 2D weights, per-frame GroupNorm, no cross-frame K/V (the
+    one-call eps gap to (a) stated); (c) its GroupNorms spanning the
+    frames, as the SD UNet's resnets have them; (d) plus the sparse-causal
+    frame set of the SD path; (e) the SD UNet with its own draw (seed 0,
+    the SD phase's weights)."""
+    import torch
+
+    from univst_torch.core.config import SD_BASE_FRAME_INDICES
+    from univst_torch.models.layers import GroupNorm, VideoCtx
+    from univst_torch.models.unet_sd import UNetPseudo3D, UNetSDConfig
+    from univst_torch.pipelines.sd import random_init_
+
+    t0 = time.time()
+    with torch.no_grad():
+        for mm in pipe.unet.motion_modules():
+            mm.temporal_transformer.proj_out.weight.zero_()
+    psnr = {"a_ad_unet": _round_trip_psnr(pipe, z0, ctx, steps)}
+    pipe.unet.float()
+    psnr["a_ad_unet_fp32"] = _round_trip_psnr(dataclasses.replace(pipe, dtype=torch.float32), z0,
+                                              ctx.float(), steps)
+    pipe.unet.to(torch.bfloat16)
+    # the SD UNet at the AD UNet's 2D widths (SD-1.5's for ``ad_v2``)
+    acfg = pipe.unet.cfg
+    scfg = UNetSDConfig(**{f.name: getattr(acfg, f.name) for f in dataclasses.fields(UNetSDConfig)
+                           if hasattr(acfg, f.name) and f.name != "capture_up_block"})
+    with torch.device(pipe.device):
+        sd_unet = UNetPseudo3D(scfg)
+    random_init_(sd_unet, torch.Generator(device=pipe.device).manual_seed(0))
+    sd_unet.to(torch.bfloat16).eval().requires_grad_(False)
+    sd_pipe = dataclasses.replace(pipe, unet=sd_unet)
+    psnr["e_sd_unet_own_weights"] = _round_trip_psnr(
+        dataclasses.replace(sd_pipe, base_frame_indices=SD_BASE_FRAME_INDICES), z0, ctx, steps)
+    ad_sd = pipe.unet.state_dict()
+    sd_unet.load_state_dict({k: ad_sd[k] for k in sd_unet.state_dict()}, strict=True)
+    psnr["d_sd_unet_video_gn_sparse_causal"] = _round_trip_psnr(
+        dataclasses.replace(sd_pipe, base_frame_indices=SD_BASE_FRAME_INDICES), z0, ctx, steps)
+    psnr["c_sd_unet_video_gn"] = _round_trip_psnr(sd_pipe, z0, ctx, steps)
+    gns = [m for m in sd_unet.modules() if isinstance(m, GroupNorm) and m.across_frames]
+    for m in gns:
+        m.across_frames = False
+    psnr["b_sd_unet_frame_gn"] = _round_trip_psnr(sd_pipe, z0, ctx, steps)
+    vctx = VideoCtx(num_frames=pipe.num_frames, frame_indices=())
+    t = int(pipe.schedule.timesteps(steps)[0])
+    with torch.inference_mode():
+        e_ad = pipe.unet(z0.to(torch.bfloat16), t, ctx, vctx)[0].float()
+        e_sd = sd_unet(z0.to(torch.bfloat16), t, ctx, vctx)[0].float()
+    _sync()
+    print("[ad_psnr] " + json.dumps(dict(
+        steps=steps, recon_latent_psnr_db=psnr, video_gn_layers=len(gns),
+        eps_b_vs_a_max_abs=(e_sd - e_ad).abs().max().item(), eps_a_max_abs=e_ad.abs().max().item(),
+        **_latent_stats(z0), seconds=time.time() - t0)), flush=True)
+    del sd_unet, sd_pipe
 
 
 def phase_sd3(steps: int, px: int = 1024):
@@ -762,18 +1068,27 @@ def main(argv=None) -> int:
     phase_build()
     cases, tokens = phase_kernels()
     sd_launches, sd_state = phase_main_path(args.steps)
-    phase_sd_fallback(sd_state, args.steps)
+    fallback_launches = phase_sd_fallback(sd_state, args.steps)
+    phase_sd_linear_betas(sd_state, args.steps)
+    phase_lk_shift()
+    smooth_launches, smooth_frames = phase_smooth(sd_state, args.steps)
     del sd_state
+    torch.cuda.empty_cache()
+    phase_raft(smooth_frames)
+    del smooth_frames
     torch.cuda.empty_cache()
     phase_ad(args.ad_steps)
     torch.cuda.empty_cache()
     sd3_launches = phase_sd3(args.sd3_steps)
 
+    k1_paths = {"sd": sd_launches, "sd_fallback": fallback_launches, "smooth": smooth_launches}
+    k1_paths = {k: v["video_flash_attention"] for k, v in k1_paths.items()}
     entries = [
-        _entry("video_flash_attention", TPU_KERNEL, sd_launches["video_flash_attention"],
-               cases, cases[0]),
-        _entry("video_flash_attention_tokens", TPU_KERNEL_FOLDED,
-               sd3_launches["video_flash_attention_tokens"], tokens, tokens[0]),
+        dict(_entry("video_flash_attention", TPU_KERNEL, sum(k1_paths.values()), cases, cases[0]),
+             launches_by_path=k1_paths),
+        dict(_entry("video_flash_attention_tokens", TPU_KERNEL_FOLDED,
+                    sd3_launches["video_flash_attention_tokens"], tokens, tokens[0]),
+             launches_by_path={"sd3": sd3_launches["video_flash_attention_tokens"]}),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi)

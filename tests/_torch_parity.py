@@ -1,17 +1,85 @@
 """Shared fixtures of the PyTorch port's parity tests: tiny JAX modules with
 their params, and the same weights carried into the port's modules through
-``univst_torch.models.convert`` with a strict load."""
+``univst_torch.models.convert`` with a strict load.
+
+Two things keep these tests inside the suite's clock on a CPU shared by
+several pytest-xdist workers:
+  * each worker's torch intra-op pool gets the worker's share of the cores
+    (importing this module sets it; with torch's default of every core per
+    process, six workers oversubscribe eight cores and a torch-only test
+    runs ~20x slower);
+  * :func:`seeded_init` stands in for Flax's random init: XLA takes 1-2
+    minutes on the CPU to compile the init graph of one tiny UNet, while
+    the parity tests need only some weights, the same on both sides.
+"""
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import os
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from univst_torch.models import convert as tcv
+
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
+
+def fill_params(shapes, rng: np.random.Generator):
+    """Numpy params for a tree of ``jax.ShapeDtypeStruct`` leaves in the
+    families of the JAX package's init: kernels and embeddings lecun-normal
+    (a normal truncated at 2 sigma, variance 1 / fan-in; fan-in is every
+    axis but the last), biases 0, norm scales 1, blend factors 0.5."""
+    def leaf(path, s):
+        name = str(getattr(path[-1], "key", path[-1]))
+        if name == "bias":
+            return np.zeros(s.shape, s.dtype)
+        if name == "scale":
+            return np.ones(s.shape, s.dtype)
+        if name == "mix_factor":
+            return np.full(s.shape, 0.5, s.dtype)
+        x = rng.standard_normal(s.shape)
+        while (out := np.abs(x) > 2.0).any():
+            x[out] = rng.standard_normal(int(out.sum()))
+        fan_in = int(np.prod(s.shape[:-1])) if len(s.shape) > 1 else 1
+        # 0.8796: the std of a unit normal truncated at 2 sigma
+        return (x / 0.87962566103423978 / np.sqrt(fan_in)).astype(s.dtype)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+@contextlib.contextmanager
+def seeded_init(seed: int = 0):
+    """Within this block, Flax's ``Module.init`` returns :func:`fill_params`
+    weights (numpy draws from ``seed``, one stream for all the inits in
+    the block, in call order) of the shapes the real init would give
+    (``jax.eval_shape``, no compile). A JAX package build function called inside
+    it builds its modules as always and skips only the random init."""
+    rng = np.random.default_rng(seed)
+    real = nn.Module.init
+
+    def init(self, rngs, *args, **kwargs):
+        arrays = [i for i, a in enumerate(args) if hasattr(a, "shape")]
+
+        def abstract(rngs, *arr):
+            full = list(args)
+            for i, a in zip(arrays, arr):
+                full[i] = a
+            return real(self, rngs, *full, **kwargs)
+
+        return fill_params(jax.eval_shape(abstract, rngs, *[args[i] for i in arrays]), rng)
+
+    nn.Module.init = init
+    try:
+        yield
+    finally:
+        nn.Module.init = real
 
 
 def to_np(tree):
@@ -37,8 +105,9 @@ def jax_unet(f: int = 4, hw: int = 8, capture_up_block=2, seed: int = 0):
     cfg = UNetSDConfig.tiny(temporal_identity=True, capture_up_block=capture_up_block)
     unet = UNetPseudo3D(cfg, dtype=jnp.float32)
     vctx = VideoCtx(num_frames=f, frame_indices=SD_BASE_FRAME_INDICES)
-    params = jax.jit(unet.init)(jax.random.PRNGKey(seed), jnp.zeros((f, hw, hw, 4)),
-                                jnp.asarray(0), jnp.zeros((1, 77, 32)), vctx)["params"]
+    with seeded_init(seed):
+        params = unet.init(jax.random.PRNGKey(seed), jnp.zeros((f, hw, hw, 4)),
+                           jnp.asarray(0), jnp.zeros((1, 77, 32)), vctx)["params"]
     return unet, to_np(params), cfg
 
 
@@ -58,8 +127,8 @@ def jax_vae(f: int = 4, seed: int = 1):
 
     cfg = VAEConfig.tiny(temporal_decoder=True)
     vae = AutoencoderKL(cfg, dtype=jnp.float32)
-    params = jax.jit(vae.init, static_argnums=2)(
-        jax.random.PRNGKey(seed), jnp.zeros((f, 32, 32, 3)), f)["params"]
+    with seeded_init(seed):
+        params = vae.init(jax.random.PRNGKey(seed), jnp.zeros((f, 32, 32, 3)), f)["params"]
     return vae, to_np(params), cfg
 
 
@@ -78,7 +147,8 @@ def jax_clip(seed: int = 2):
 
     cfg = CLIPTextConfig.tiny()
     model = CLIPTextModel(cfg, dtype=jnp.float32)
-    params = jax.jit(model.init)(jax.random.PRNGKey(seed), jnp.zeros((1, 77), jnp.int32))["params"]
+    with seeded_init(seed):
+        params = model.init(jax.random.PRNGKey(seed), jnp.zeros((1, 77), jnp.int32))["params"]
     return model, to_np(params), cfg
 
 

@@ -161,3 +161,27 @@ def test_ad_batched_style_capture_equals_per_step_capture(ad_pipes):
     per_step = _port_stylize(tp, content, style, mask, shift, n)
     batched = _port_stylize(tp, content, style, mask, shift, n, style_prepass_chunk=3)
     torch.testing.assert_close(batched, per_step, rtol=1e-5, atol=1e-5)
+
+
+def test_ad_round_trip_psnr_is_the_jax_packages(ad_pipes):
+    """Inversion -> reconstruction comes back to the start latent exactly as
+    far in the port as in the JAX package on the same weights (to 0.01 dB):
+    the AnimateDiff path's round-trip PSNR on the card (below SD's, with or
+    without the motion modules) belongs to the method and the random
+    weights, not to the port."""
+    jp, tp = ad_pipes
+    lat0 = np.random.default_rng(0).standard_normal((F, H8, H8, 4)).astype(np.float32)
+    cap_t = int(jp.schedule.timesteps(N)[::-1][2])  # as above: the compiled JAX segment
+
+    def psnr(rec):
+        err = np.mean((np.asarray(rec, np.float64) - lat0) ** 2)
+        return 10 * np.log10((lat0.max() - lat0.min()) ** 2 / err)
+
+    jctx, tctx = jp.encode_text(""), tp.encode_text("")
+    jtraj, _ = jp.invert(jnp.asarray(lat0), jctx, num_steps=N, is_opt=True,
+                         capture_timestep=cap_t)
+    ttraj, _ = tp.invert(torch.tensor(lat0), tctx, num_steps=N, is_opt=True,
+                         capture_timestep=cap_t)
+    want = psnr(jp.reconstruct_latents(jtraj[-1], jctx, num_steps=N))
+    got = psnr(tp.reconstruct_latents(ttraj[-1], tctx, num_steps=N))
+    assert np.isfinite(want) and abs(got - want) < 0.01

@@ -38,6 +38,10 @@ def test_ddim_schedule_and_steps_match_jax(n):
                js.step(jnp.asarray(e), t, jnp.asarray(x), n))
         _close(ts.next_step(torch.tensor(e), t, torch.tensor(x), n),
                js.next_step(jnp.asarray(e), t, jnp.asarray(x), n))
+        _close(ts.pred_original(torch.tensor(e), t, torch.tensor(x)),
+               js.pred_original(jnp.asarray(e), t, jnp.asarray(x)))
+        _close(ts.return_to_timestep(t, torch.tensor(x), torch.tensor(e)),
+               js.return_to_timestep(t, jnp.asarray(x), jnp.asarray(e)))
 
 
 @pytest.mark.parametrize("n", [6, 10, 50])
@@ -98,3 +102,13 @@ def test_trajectory_files_are_byte_compatible(tmp_path):
     trajectory.save_trajectory(torch.tensor(traj), str(tb))
     assert not trajectory.style_frames_identical(str(tb), 3)
     assert not jtraj.style_frames_identical(str(tb), 3)
+
+
+def test_style_transfer_config_matches_jax():
+    """The pipeline constants, the smoother's included, default as in the
+    JAX package."""
+    import dataclasses
+
+    want = dataclasses.asdict(jconfig.StyleTransferConfig())
+    assert dataclasses.asdict(config.StyleTransferConfig()) == want
+    assert want["smoother"] is None and want["smoother_steps"] == (20, 25)

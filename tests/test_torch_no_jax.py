@@ -54,7 +54,7 @@ def test_every_module_imports_without_jax():
                                  "run_style_inversion_sd3", "run_video_style_transfer_sd3",
                                  "run_content_inversion_animatediff",
                                  "run_style_inversion_animatediff",
-                                 "run_video_style_transfer_animatediff"])
+                                 "run_video_style_transfer_animatediff", "cal_optical_flow"])
 def test_cli_help_without_jax(cli):
     res = _run(f"import runpy; sys.argv = ['x', '--help']; "
                f"runpy.run_module('univst_torch.cli.{cli}', run_name='__main__')")

@@ -1,6 +1,7 @@
 """The slice as a whole: the port's SD pipeline against the JAX package's,
 on the tiny SD config (4 frames, 64 px) with the same weights (the JAX
-pipeline's seed-0 params carried across with strict loads) in fp32 on CPU.
+pipeline's params, drawn by ``seeded_init(0)``, carried across with strict
+loads) in fp32 on CPU.
 
 Covered: text encoding, content inversion with EasyInv and feature capture,
 stylization on the style-singleton path with both phases present (a 6-step
@@ -21,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import rel_err
+from _torch_parity import rel_err, seeded_init
 
 F, PX, N = 4, 64, 6
 
@@ -32,8 +33,9 @@ def pipes():
     from univst_torch.models import convert as tcv
     from univst_torch.pipelines.sd import SDVideoPipeline
 
-    jp = JPipe.build(variant="tiny", num_frames=F, height=PX, width=PX, dtype=jnp.float32,
-                     capture_up_block=2, seed=0)
+    with seeded_init(0):
+        jp = JPipe.build(variant="tiny", num_frames=F, height=PX, width=PX, dtype=jnp.float32,
+                         capture_up_block=2, seed=0)
     tp = SDVideoPipeline.build(variant="tiny", num_frames=F, dtype=torch.float32,
                                capture_up_block=2, device="cpu")
     for module, emit, params, cfg in (

@@ -1,8 +1,8 @@
 """The SD pipeline off the style-singleton path: capture-and-inject, what
 the SD transfer CLI falls back to on a style trajectory whose frames differ,
 against the JAX package's, on the tiny SD config (4 frames, 64 px, fp32,
-CPU; K1's plain version), with the JAX pipeline's seed-0 weights carried
-across with strict loads. A 6-step window config runs both phases (steps
+CPU; K1's plain version), with the JAX pipeline's weights (drawn by
+``seeded_init(0)``) carried across with strict loads. A 6-step window config runs both phases (steps
 0-3 injected, 4-5 stylized-only); mask blend and AdaIN re-anchor on.
 
 Tolerance: relative 1e-3 of the max (two fp32 frameworks over the DDIM
@@ -14,7 +14,7 @@ import dataclasses
 import jax.numpy as jnp
 import torch
 
-from _torch_parity import rel_err
+from _torch_parity import rel_err, seeded_init
 from test_torch_ad_pipeline import F, N, PX, _carry, _shift, _stylize_inputs
 
 
@@ -27,8 +27,9 @@ def test_sd_non_singleton_stylize_matches_jax():
     from univst_torch.models import convert as tcv
     from univst_torch.pipelines.sd import SDVideoPipeline
 
-    jp = JPipe.build(variant="tiny", num_frames=F, height=PX, width=PX, dtype=jnp.float32,
-                     seed=0)
+    with seeded_init(0):
+        jp = JPipe.build(variant="tiny", num_frames=F, height=PX, width=PX, dtype=jnp.float32,
+                         seed=0)
     tp = SDVideoPipeline.build(variant="tiny", num_frames=F, dtype=torch.float32, device="cpu")
     _carry(tp, jp, tcv.flax_unet_to_state_dict)
     jp = dataclasses.replace(jp, style_singleton=False)

@@ -13,8 +13,7 @@ import argparse
 import os
 
 from univst_torch.cli.common import (
-    NOT_PORTED, add_mesh_flag, build_pipeline_from_args, check_backbone,
-    singleton_style_or_fallback,
+    add_mesh_flag, build_pipeline_from_args, check_backbone, singleton_style_or_fallback,
 )
 from univst_torch.utils.io import load_mask, save_frames, seed_everything
 
@@ -27,12 +26,22 @@ def main(args):
     from univst_torch.core.trajectory import load_trajectory
 
     check_backbone(args)
-    if args.smoother:
-        raise SystemExit(f"--smoother {NOT_PORTED}")
+    raft = bool(args.smoother) and args.flow == "raft"
+    if raft and not args.raft_ckpt:
+        raise SystemExit("--flow raft requires --raft_ckpt (torchvision "
+                         "Raft_Large_Weights or princeton-vl layout)")
     if args.seed is not None:
         seed_everything(args.seed)
 
     pipe = build_pipeline_from_args(args)
+    if raft:
+        import dataclasses
+
+        from univst_torch.models.convert import load_raft
+        from univst_torch.models.raft import make_raft_flow
+
+        pipe = dataclasses.replace(
+            pipe, flow_fn=make_raft_flow(load_raft(args.raft_ckpt).to(pipe.device)))
     # trajectories ordered so index i holds latents at inversion step N-i
     content_rev = load_trajectory(args.content_inv_path, args.time_steps, reverse=True,
                                   device=pipe.device)
@@ -56,7 +65,7 @@ def main(args):
     context = pipe.encode_text(args.prompt)
     out = pipe.stylize_latents(
         content_rev, style_rev, init_latents, torch.cat([context] * 3), mask=mask,
-        cfg=StyleTransferConfig(num_steps=args.time_steps),
+        cfg=StyleTransferConfig(num_steps=args.time_steps, smoother=args.smoother),
     )
     frames = pipe.decode_latents_uint8(out).cpu().numpy()
 
@@ -84,11 +93,14 @@ def build_parser():
     p.add_argument("--time_steps", type=int, default=50)
     p.add_argument("--seed", type=int, default=33)
     p.add_argument("--smoother", type=str, default=None, choices=[None, "pixel"],
-                   help=f"sliding-window flow smoother; {NOT_PORTED}")
+                   help="sliding-window flow smoother (the reference ships this "
+                        "feature disabled; 'pixel' enables it)")
     p.add_argument("--flow", type=str, default="lk", choices=["lk", "raft"],
-                   help="smoother optical flow (with --smoother)")
+                   help="smoother optical flow: built-in Lucas-Kanade pyramid or "
+                        "RAFT-large (the reference's flow, cal_optica_flow.py:53)")
     p.add_argument("--raft_ckpt", type=str, default=None,
-                   help="RAFT checkpoint for --flow raft (with --smoother)")
+                   help="RAFT checkpoint (torchvision Raft_Large_Weights or "
+                        "princeton-vl .pth) for --flow raft")
     p.add_argument("--variant", type=str, default="sd15", choices=["sd15", "sd21", "tiny"])
     p.add_argument("--backbone", type=str, default="sd")
     p.add_argument("--prompt", type=str, default="",

@@ -8,7 +8,7 @@ index: PyTorch runs the denoise loops in Python, so nothing here is traced.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 # A cross-frame attention index: 'first' | 'last' | 'mid' or a relative int
 # offset clipped to [0, F-1] (reference: video_diffusion_sd/models/attention.py:388-410).
@@ -102,6 +102,12 @@ class StyleTransferConfig:
     # AdaIN re-anchor window (adain_lo * N, adain_hi * N]; SD3 closes both ends
     adain_lo: float = 0.8
     adain_hi: float = 0.9
+    # sliding-window pixel smoother (the reference ships it disabled,
+    # stable_diffusion.py:715): None or 'pixel'; it runs at the steps
+    # [lo, hi) with a +/-radius frame window
+    smoother: Optional[str] = None
+    smoother_steps: Tuple[int, int] = (20, 25)
+    smoother_radius: int = 2
     # SD3 controlled-velocity pull (custom_pipeline.py:157-161, flow_inversion.py:61-64)
     eta_base: float = 0.85
     eta_trend: str = "constant"

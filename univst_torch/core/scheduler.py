@@ -71,12 +71,17 @@ class DDIMSchedule:
         return self.alphas_cumprod[min(t, self.cfg.num_train_timesteps - 1)]
 
     @staticmethod
-    def _update(eps, sample, alpha_from, alpha_to):
+    def _x0(x, e, a):
+        """The predicted x0 of fp32 ``x`` and ``e`` at alpha-bar ``a``."""
+        return (x - float(np.sqrt(np.float32(1.0) - a)) * e) / float(np.sqrt(a))
+
+    @classmethod
+    def _update(cls, eps, sample, alpha_from, alpha_to):
         """x at alpha_from -> x at alpha_to through the predicted x0, in fp32."""
         x = sample.float()
         e = eps.float()
         a_f, a_t = np.float32(alpha_from), np.float32(alpha_to)
-        pred_x0 = (x - float(np.sqrt(np.float32(1.0) - a_f)) * e) / float(np.sqrt(a_f))
+        pred_x0 = cls._x0(x, e, a_f)
         out = float(np.sqrt(a_t)) * pred_x0 + float(np.sqrt(np.float32(1.0) - a_t)) * e
         return out.to(sample.dtype)
 
@@ -85,6 +90,19 @@ class DDIMSchedule:
         diffusers DDIMScheduler.step with epsilon prediction."""
         step_ratio = self.cfg.num_train_timesteps // num_inference_steps
         return self._update(eps, sample, self._alpha_at(t), self._alpha_at(int(t) - step_ratio))
+
+    def pred_original(self, eps, t: int, sample):
+        """The x0 estimate from (x_t, eps), in fp32: the smoother's entry
+        point (reference stable_diffusion.py:718)."""
+        return self._x0(sample.float(), eps.float(), np.float32(self._alpha_at(t))).to(sample.dtype)
+
+    def return_to_timestep(self, t: int, sample, sample_stabilized):
+        """The eps that maps a stabilized x0 back onto x_t (reference
+        stable_diffusion.py:782-791)."""
+        a = np.float32(self._alpha_at(t))
+        eps = ((sample.float() - float(np.sqrt(a)) * sample_stabilized.float())
+               / float(np.sqrt(np.float32(1.0) - a)))
+        return eps.to(sample.dtype)
 
     def next_step(self, eps, t: int, sample, num_inference_steps: int):
         """Inverse DDIM update x_{t-Delta} -> x_t used during inversion

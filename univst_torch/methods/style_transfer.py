@@ -47,9 +47,12 @@ def style_transfer_ddim_steps(
     style_kv=None,
     solo: bool = False,
     capture: bool = False,
+    eps_hook: Optional[Callable] = None,
 ):
     """Run a contiguous segment of the stylization loop (steps/ts of length K,
-    trajectory chunks ``[K, F|1, h, w, C]``).
+    trajectory chunks ``[K, F|1, h, w, C]``). ``eps_hook(eps, t, i,
+    latents)``, where given, replaces the step's eps before the DDIM update
+    (the pixel smoother).
 
     Denoiser layouts:
       * ``style_kv=None``: 3-branch — ``denoise3([3F], t, i)``;
@@ -94,6 +97,8 @@ def style_transfer_ddim_steps(
         else:
             kv_t = tuple((k[j], v[j]) for k, v in style_kv)
             eps = denoise3(torch.cat([cnt_t, latents]), t, i, kv_t)[f:]
+        if eps_hook is not None:
+            eps = eps_hook(eps, t, i, latents)
         latents = schedule.step(eps, t, latents, n)
     return latents
 

@@ -446,3 +446,130 @@ def load_pretrained(path: str, unet=None, vae=None, text_encoder=None, transform
         if weights is None:
             raise FileNotFoundError(f"no weights file under {os.path.join(path, sub)}")
         load_strict(module, load_state_dict_file(weights), sub)
+
+
+# ---------------------------------------------------------------------------
+# RAFT (princeton-vl key names: fnet.* / cnet.* / update_block.*)
+# ---------------------------------------------------------------------------
+
+
+def _raft_mask_channels_to_torch(x: np.ndarray) -> np.ndarray:
+    """``mask_conv2``'s 576 output channels from the JAX package's order
+    ``(8, 8, 9)`` (neighbor last) to torchvision's ``(9, 8, 8)`` (neighbor
+    first), along axis 0."""
+    return x.reshape((64, 9) + x.shape[1:]).swapaxes(0, 1).reshape(x.shape)
+
+
+def flax_raft_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX package's RAFT params -> the port's state dict. ``cnet``'s
+    batch norms hold the folded inference ``scale`` / ``bias`` there; they
+    become a BatchNorm2d (eps 1e-5) with ``running_mean = 0`` and
+    ``running_var = 1 - eps``, which computes ``x * scale + bias`` (to fp32
+    rounding of ``sqrt(1 - eps + eps)``). ``mask_conv2``'s output channels
+    are permuted to torchvision's order (the JAX package reads them
+    neighbor-last)."""
+    e = _Emitter(params)
+    eps = 1e-5
+
+    def bn(src, dst):
+        scale = e.leaf(dst + "/scale")
+        e.put(src + ".weight", scale)
+        e.put(src + ".bias", e.leaf(dst + "/bias"))
+        e.put(src + ".running_mean", np.zeros_like(scale))
+        e.put(src + ".running_var", np.full_like(scale, 1.0 - eps))
+        e.put(src + ".num_batches_tracked", np.asarray(0, np.int64))
+
+    for enc, norm in (("fnet", "instance"), ("cnet", "batch")):
+        e.conv2d(f"{enc}.conv1", f"{enc}/conv1")
+        if norm == "batch":
+            bn(f"{enc}.norm1", f"{enc}/norm1")
+        for stage in (1, 2, 3):
+            for blk in (0, 1):
+                s, d = f"{enc}.layer{stage}.{blk}", f"{enc}/layer{stage}_{blk}"
+                e.conv2d(f"{s}.conv1", f"{d}/conv1")
+                e.conv2d(f"{s}.conv2", f"{d}/conv2")
+                if norm == "batch":
+                    bn(f"{s}.norm1", f"{d}/norm1")
+                    bn(f"{s}.norm2", f"{d}/norm2")
+                if e.has(f"{d}/downsample"):
+                    e.conv2d(f"{s}.downsample.0", f"{d}/downsample")
+                    if norm == "batch":
+                        bn(f"{s}.downsample.1", f"{d}/norm3")
+        e.conv2d(f"{enc}.conv2", f"{enc}/conv2")
+    for name in ("convc1", "convc2", "convf1", "convf2", "conv"):
+        e.conv2d(f"update_block.encoder.{name}", f"update_block/{name}")
+    for name in ("convz1", "convr1", "convq1", "convz2", "convr2", "convq2"):
+        e.conv2d(f"update_block.gru.{name}", f"update_block/gru/{name}")
+    e.conv2d("update_block.flow_head.conv1", "update_block/flow_head_conv1")
+    e.conv2d("update_block.flow_head.conv2", "update_block/flow_head_conv2")
+    e.conv2d("update_block.mask.0", "update_block/mask_conv1")
+    e.conv2d("update_block.mask.2", "update_block/mask_conv2")
+    for leaf in ("weight", "bias"):
+        key = f"update_block.mask.2.{leaf}"
+        e.out[key] = np.ascontiguousarray(_raft_mask_channels_to_torch(e.out[key]))
+    return e.out
+
+
+def _torchvision_raft_to_princeton(sd: Mapping) -> Dict:
+    """torchvision ``Raft_Large_Weights`` key names -> princeton-vl's (the
+    JAX package's ``convert.py:558-615``): the two module trees are the same
+    architecture under other names. Longest source prefix first, so a
+    block's rename wins over its encoder stem's."""
+    renames = [
+        ("update_block.motion_encoder.convcorr1.0", "update_block.encoder.convc1"),
+        ("update_block.motion_encoder.convcorr2.0", "update_block.encoder.convc2"),
+        ("update_block.motion_encoder.convflow1.0", "update_block.encoder.convf1"),
+        ("update_block.motion_encoder.convflow2.0", "update_block.encoder.convf2"),
+        ("update_block.motion_encoder.conv.0", "update_block.encoder.conv"),
+        ("mask_predictor.convrelu.0", "update_block.mask.0"),
+        ("mask_predictor.conv", "update_block.mask.2"),
+    ]
+    for g in (1, 2):
+        for gate in "zrq":
+            renames.append((f"update_block.recurrent_block.convgru{g}.conv{gate}",
+                            f"update_block.gru.conv{gate}{g}"))
+    for src, dst in (("feature_encoder", "fnet"), ("context_encoder", "cnet")):
+        renames += [(f"{src}.convnormrelu.0", f"{dst}.conv1"),
+                    (f"{src}.convnormrelu.1", f"{dst}.norm1"), (f"{src}.conv.", f"{dst}.conv2.")]
+        for stage in (1, 2, 3):
+            for blk in (0, 1):
+                s, d = f"{src}.layer{stage}.{blk}", f"{dst}.layer{stage}.{blk}"
+                renames += [(f"{s}.convnormrelu1.0", f"{d}.conv1"),
+                            (f"{s}.convnormrelu1.1", f"{d}.norm1"),
+                            (f"{s}.convnormrelu2.0", f"{d}.conv2"),
+                            (f"{s}.convnormrelu2.1", f"{d}.norm2"),
+                            (f"{s}.downsample.", f"{d}.downsample.")]
+    renames.sort(key=lambda ab: -len(ab[0]))
+    out = {}
+    for k, v in sd.items():
+        for a, b in renames:
+            if k.startswith(a):
+                k = b + k[len(a):]
+                break
+        out[k] = v
+    return out
+
+
+def load_raft(src, cfg=None):
+    """A RAFT-large module (``RAFTConfig()`` unless ``cfg``) loaded strictly
+    from a checkpoint path or a state dict, in eval mode on the CPU. Takes
+    both layouts: princeton-vl (raft-things/sintel .pth; ``module.``
+    prefixes stripped) and torchvision ``Raft_Large_Weights``
+    (``feature_encoder.`` keys, renamed). princeton-vl's residual blocks
+    register their downsampling norm twice (``norm3`` and ``downsample.1``):
+    the ``norm3`` copy is dropped after checking it equals the other."""
+    from univst_torch.models.raft import RAFT, RAFTConfig
+
+    sd = load_state_dict_file(src) if isinstance(src, str) else dict(src)
+    sd = {k[len("module."):] if k.startswith("module.") else k: torch.as_tensor(v)
+          for k, v in sd.items()}
+    if any(k.startswith("feature_encoder.") for k in sd):
+        sd = _torchvision_raft_to_princeton(sd)
+    for k in [k for k in sd if ".norm3." in k]:
+        twin = k.replace(".norm3.", ".downsample.1.")
+        v = sd.pop(k)
+        if twin not in sd or not torch.equal(v, sd[twin]):
+            raise RuntimeError(f"RAFT checkpoint: {k} has no equal {twin}")
+    model = RAFT(cfg if cfg is not None else RAFTConfig())
+    model.load_state_dict(sd, strict=True)
+    return model.eval()

@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ from univst_torch.core.config import (
     StyleTransferConfig,
 )
 from univst_torch.core.scheduler import DDIMConfig, DDIMSchedule, EasyInvConfig
+from univst_torch.methods import flow
 from univst_torch.methods import inversion as inv
 from univst_torch.methods.style_transfer import style_transfer_ddim_steps
 from univst_torch.models.clip_text import CLIPTextConfig, CLIPTextModel, Tokenizer
@@ -108,6 +109,11 @@ class SDVideoPipeline:
     # frame positions vary per frame, not per step). None: one F-row capture
     # forward per step.
     style_prepass_chunk: Optional[int] = None
+    # The pixel smoother's optical flow, a batched ``flow_fn(img1, img2)``
+    # of ``methods/flow.py``: None is the built-in Lucas-Kanade pyramid;
+    # ``models.raft.make_raft_flow`` gives RAFT (the reference smoother's
+    # flow, src/cal_optica_flow.py:53-54).
+    flow_fn: Optional[Callable] = None
 
     # -- construction --------------------------------------------------------
 
@@ -248,13 +254,27 @@ class SDVideoPipeline:
         return torch.cat([latents[None], traj]), captured
 
     @torch.inference_mode()
-    def reconstruct_latents(self, latents_T, context, num_steps: int = 50):
-        """xT -> x0 reconstruction. The reference runs the [uncond | cond]
-        batch (stable_diffusion.py:560-614) at guidance 1.0, where guidance is
-        the identity, so one batch runs here."""
+    def reconstruct_latents(self, latents_T, context, num_steps: int = 50,
+                            guidance_scale: float = 1.0, uncond_context=None):
+        """xT -> x0 reconstruction with classifier-free guidance. The
+        reference runs the [uncond | cond] batch (stable_diffusion.py:560-614)
+        and its callers pass guidance 1.0 (ddim_inversion.py:40,63), where
+        guidance is the identity: at 1 one batch runs here. Above 1 the
+        [uncond | cond] batch runs and the eps are combined
+        (stable_diffusion.py:588-614); ``uncond_context`` defaults to the
+        empty prompt's embedding."""
         ts = self.schedule.timesteps(num_steps)
         latent = latents_T.to(self.device).float()
-        denoise = self._denoise_fn(context, self.base_frame_indices, None)
+        if guidance_scale > 1.0:
+            uc = uncond_context if uncond_context is not None else self.encode_text("")
+            denoise2 = self._denoise_fn(torch.cat([uc.to(self.device), context]),
+                                        self.base_frame_indices, None)
+
+            def denoise(lat, t, i):
+                eps_u, eps_c = denoise2(torch.cat([lat, lat]), t, i)[0].chunk(2)
+                return eps_u + guidance_scale * (eps_c - eps_u), None
+        else:
+            denoise = self._denoise_fn(context, self.base_frame_indices, None)
         return inv.ddim_sample_segment(denoise, latent, range(num_steps), ts, self.schedule,
                                        num_steps)
 
@@ -273,6 +293,11 @@ class SDVideoPipeline:
         batch gets that K/V injected. Otherwise capture-and-inject: per step
         an F-row style forward captures the K/V (or one forward per
         ``style_prepass_chunk`` steps), then the injected 2-branch batch.
+
+        With ``cfg.smoother == 'pixel'`` phase 1 reaches at least to the end
+        of the smoothing steps, and each step in ``cfg.smoother_steps`` =
+        [lo, hi) smooths its x0 estimate in pixel space (:meth:`_smooth_eps`)
+        on whichever phase-1 path runs.
         """
         scfg = style_cfg if style_cfg is not None else self.style_shift_cfg
         n = cfg.num_steps
@@ -282,10 +307,17 @@ class SDVideoPipeline:
         style_traj_rev = style_traj_rev.to(dev)
         mask = None if mask is None else torch.as_tensor(mask, device=dev)
         context3 = context3.to(dev)
+        if cfg.smoother not in (None, "pixel"):
+            raise ValueError(f"smoother {cfg.smoother!r}: use None or 'pixel'")
 
-        phase1, phase2 = phase_segments(n, scfg.window_end())
+        window_end = scfg.window_end()
+        if cfg.smoother is not None:
+            # the smoothing steps take the full multi-branch step: keep them in phase 1
+            window_end = max(window_end, cfg.smoother_steps[1])
+        phase1, phase2 = phase_segments(n, window_end)
         k1 = phase2[0][0] if phase2 else n
         latents = init_latents.to(dev).float()
+        hook = self._smooth_hook(cfg, mask)
         if self.style_singleton:
             style_traj_rev = style_traj_rev[:, :1]
             if phase1:
@@ -293,7 +325,7 @@ class SDVideoPipeline:
             for s0, c in phase1:
                 latents = self._stylize_chunk_singleton(content_traj_rev, style_traj_rev,
                                                         style_kv_all, latents, ts, s0, context3,
-                                                        mask, cfg, scfg, c)
+                                                        mask, cfg, scfg, c, hook)
         else:
             # the full per-frame style latents: the AdaIN re-anchor's
             # statistics span frames (latent_adain dims [0, 3, 4])
@@ -305,11 +337,11 @@ class SDVideoPipeline:
                     for t0 in range(s0, s0 + c, pc):
                         latents = self._stylize_chunk_prepass(
                             content_traj_rev, style_traj_rev, latents, ts, t0, context3, mask,
-                            cfg, scfg, min(pc, s0 + c - t0))
+                            cfg, scfg, min(pc, s0 + c - t0), hook)
                 else:
                     latents = self._stylize_chunk_capture(content_traj_rev, style_traj_rev,
                                                           latents, ts, s0, context3, mask, cfg,
-                                                          scfg, c)
+                                                          scfg, c, hook)
         for s0, c in phase2:
             latents = self._stylize_chunk_solo(content_traj_rev, style_traj_rev, latents, ts,
                                                s0, context3, mask, cfg, c)
@@ -327,7 +359,7 @@ class SDVideoPipeline:
         return extract_pnp_kv(sctx.captured)
 
     def _stylize_chunk_singleton(self, content, style, style_kv_all, latents, ts, s0,
-                                 context3, mask, cfg, style_cfg, chunk):
+                                 context3, mask, cfg, style_cfg, chunk, eps_hook=None):
         """Phase-1 segment: the 2-branch [content | stylized] batch."""
         denoise = self._denoise_fn(torch.cat([context3[:1], context3[2:3]]),
                                    self.pnp_frame_indices, style_cfg)
@@ -339,7 +371,7 @@ class SDVideoPipeline:
         sl = slice(s0, s0 + chunk)
         return style_transfer_ddim_steps(
             denoise2, content[sl], style[sl], latents, range(s0, s0 + chunk), ts[sl],
-            self.schedule, cfg, mask=mask,
+            self.schedule, cfg, mask=mask, eps_hook=eps_hook,
             style_kv=tuple((k[sl], v[sl]) for k, v in style_kv_all))
 
     def _stylize_vctx(self, num_frames: int) -> VideoCtx:
@@ -349,7 +381,7 @@ class SDVideoPipeline:
                         pnp_frame_indices=self.pnp_frame_indices)
 
     def _stylize_chunk_capture(self, content, style, latents, ts, s0, context3, mask, cfg,
-                               style_cfg, chunk):
+                               style_cfg, chunk, eps_hook=None):
         """Phase-1 segment, capture-and-inject: per step, the style branch
         alone (F rows) records its PnP K/V, then the 2-branch [content |
         stylized] batch runs with that ``[F, L, D]`` K/V injected. Exact
@@ -369,10 +401,10 @@ class SDVideoPipeline:
         sl = slice(s0, s0 + chunk)
         return style_transfer_ddim_steps(
             denoise2, content[sl], style[sl], latents, range(s0, s0 + chunk), ts[sl],
-            self.schedule, cfg, mask=mask, capture=True)
+            self.schedule, cfg, mask=mask, capture=True, eps_hook=eps_hook)
 
     def _stylize_chunk_prepass(self, content, style, latents, ts, s0, context3, mask, cfg,
-                               style_cfg, chunk):
+                               style_cfg, chunk, eps_hook=None):
         """Batched form of :meth:`_stylize_chunk_capture`: the style branch's
         PnP K/V of all ``chunk`` steps from one ``[chunk*F]``-row forward,
         each step a video of its own with its own timestep (every op is per
@@ -394,7 +426,36 @@ class SDVideoPipeline:
 
         return style_transfer_ddim_steps(
             denoise2, content[sl], style_seg, latents, range(s0, s0 + chunk), ts[sl],
-            self.schedule, cfg, mask=mask, style_kv=kv_all)
+            self.schedule, cfg, mask=mask, style_kv=kv_all, eps_hook=eps_hook)
+
+    def _smooth_hook(self, cfg, mask) -> Optional[Callable]:
+        """The pixel smoother as ``style_transfer_ddim_steps``' eps hook:
+        the steps in ``cfg.smoother_steps`` get :meth:`_smooth_eps`; None
+        without a smoother."""
+        if cfg.smoother is None:
+            return None
+        lo, hi = cfg.smoother_steps
+
+        def smooth(eps, t, i, latents):
+            return self._smooth_eps(eps, t, latents, mask, cfg) if lo <= i < hi else eps
+
+        return smooth
+
+    def _smooth_eps(self, eps, t: int, latents, mask, cfg):
+        """One smoothing step's eps (reference stable_diffusion.py:713-758;
+        JAX ``_stylize_smooth_step``): estimate x0, decode it (the temporal
+        decoder over all F frames), warp-average a +/-radius window of
+        frames by optical flow (``methods/flow.py``) with the masked object
+        region kept, re-encode (the posterior mean) and turn the smoothed
+        x0 back into the eps that reaches it from x_t."""
+        x0 = self.schedule.pred_original(eps, t, latents)
+        px = self._decode(x0, self.num_frames)
+        px = flow.sliding_window_smooth(px, self.flow_fn or flow.lucas_kanade_flow,
+                                        radius=cfg.smoother_radius,
+                                        mask=None if mask is None else mask.float())
+        mean, _ = self.vae.encode((px * 2.0 - 1.0).to(self.dtype))
+        return self.schedule.return_to_timestep(t, latents,
+                                                mean.float() * self.vae.cfg.scaling_factor)
 
     def _stylize_chunk_solo(self, content, style, latents, ts, s0, context3, mask, cfg, chunk):
         """Phase-2 segment: the stylized branch alone (the shift gate is off,
