@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SD-1.5 (with and without the pixel smoother),
-AnimateDiff-v2 and SD3 workflows on one NVIDIA GPU.
+AnimateDiff-v2, SD3-medium, SD3.5-medium and SD3.5-large workflows on one
+NVIDIA GPU, and profile three of its forwards.
 
-    python3 chip_smoke.py [--steps N] [--ad_steps N] [--sd3_steps N]
+    python3 chip_smoke.py [--steps N] [--ad_steps N] [--sd3_steps N] [--sd35l_steps N]
 
 Run from the root of a checkout, on a machine with a CUDA card. Phases, each
 ending in ``torch.cuda.synchronize()`` so a fault surfaces where it happens;
@@ -20,7 +21,9 @@ none catches its own failure:
    exponentials on the MUFU and the FMA pipe together, and bytes, from
    ``univst_torch.attention.video_flash.work``; each term on a ``[bound]``
    line). K1 is the head-major video flash attention of the SD UNet, K2 the
-   token-major one of the SD3 MMDiT.
+   token-major one of the SD3 MMDiT (24 heads; 38 for SD3.5-large). Then
+   the host's cost of one wrapper call against the bare launch
+   (``[dispatch]``).
 4. SD-1.5 path: ``SDVideoPipeline`` (SD-1.5 widths, 512 px, 16 frames,
    bf16, seeded random weights) through content inversion with feature
    capture, single-frame style inversion, mask propagation, stylization
@@ -62,26 +65,46 @@ none catches its own failure:
    modules are identities), the round-trip PSNR on the same latents and
    prompt along a ladder that turns the AD UNet into the SD path's UNet one
    difference at a time (``[ad_psnr]``).
-9. SD3 path: ``SD3VideoPipeline`` at SD3-medium widths (24 blocks, 24 heads
-   of 64, T5-XXL, CLIP-L and CLIP-G; bf16, seeded random weights), 1024 px,
-   16 frames: prompt encoding (then the text encoders are freed), VAE
-   encode, RF-Solver content inversion with the block-20 feature captured
-   at step 5, single-frame style inversion, mask propagation on that
-   feature, stylization (style-singleton 2-branch phase, then the
-   stylized-only phase), decode and the controlled-velocity
-   reconstruction. K2 must launch 24 x (2 + 1 + 1) = 96 times per step
-   (inversion's two forwards, the reconstruction, one stylization forward;
-   single-frame forwards run no video attention), K1 never.
+9. SD3 paths: ``SD3VideoPipeline`` at full width (bf16, seeded random
+   weights, T5-XXL, CLIP-L and CLIP-G, the 16-channel VAE), 1024 px, 16
+   frames: prompt encoding (then the text encoders are freed), VAE encode,
+   RF-Solver content inversion with the block-20 feature captured at step
+   5, single-frame style inversion, mask propagation on that feature,
+   stylization (style-singleton 2-branch phase, then the stylized-only
+   phase), decode and the controlled-velocity reconstruction; the peak
+   device memory of each stage. Per step, four forwards run video attention
+   (inversion's two, the reconstruction, one stylization forward;
+   single-frame forwards run none), each one K2 launch per attention: K2
+   must launch 4 x (blocks + dual-attention blocks) x steps times, K1
+   never. ``[sd3]``: SD3-medium (24 blocks, 24 heads of 64; 96 a step).
+   ``[sd35m]``: SD3.5-medium (24 blocks, 24 heads of 64, q/k RMS norms,
+   dual attention, without context, in blocks 0-12; 148 a step).
+   ``[sd35l]``: SD3.5-large (38 blocks, 38 heads of 64, q/k RMS norms; 152
+   a step) at ``--sd35l_steps``.
+10. Profile (``[profile]``): one 16-frame SD-1.5 UNet forward at 512 px
+   with B = 1 (inversion's), the injected 2-branch stylization forward (B =
+   2), and one SD3.5-medium forward at 1024 px (B = 1), on the pipelines
+   the SD and SD3.5-medium phases built. Each after an untraced warm-up:
+   its time (CUDA events), one ``torch.profiler`` trace
+   (``univst_torch.utils.profiling``: device time by kind of kernel, idle
+   share; the Chrome trace under ``results/profile/``) with the K1 / K2
+   launches in it checked, and its matmul / conv / attention FLOPs
+   (``univst_torch.utils.flops``: effective TFLOP/s and MFU against 989
+   TFLOP/s).
 
 Each path's launch counters are zeroed just before it and read just after;
-K1's ``launches`` in the JSON line is the sum over the SD, SD-fallback and
-smoother paths, each path's own count under ``launches_by_path``.
-The last line is ``{"ok": true, "device": {...}}``; the lines before it hold
-the per-kernel JSON and the card's name and power limit. Any failed check
-exits non-zero. ``--steps`` (SD-1.5) and ``--ad_steps`` default to 30 and
-``--sd3_steps`` to 32: the fewest that run both stylization phases (the
-shift windows of the 50-step constants close after step 25 (SD), 24 (AD)
-and 30 (SD3)); 50 is the full workload.
+a kernel's ``launches`` in the JSON line is the sum over its paths, each
+path's own count under ``launches_by_path`` (K1: the SD, SD-fallback,
+smoother and profile paths; K2: SD3-medium, SD3.5-medium, SD3.5-large and
+profile). The last line is ``{"ok": true, "device": {...}}``; the lines
+before it hold the per-kernel JSON and the card's name and power limit. Any
+failed check exits non-zero. ``--steps`` (SD-1.5) and ``--ad_steps``
+default to 30 and ``--sd3_steps`` (SD3-medium and SD3.5-medium) to 32: the
+fewest that run both stylization phases (the shift windows of the 50-step
+constants close after step 25 (SD), 24 (AD) and 30 (SD3)); 50 is the full
+workload. ``--sd35l_steps`` defaults to 8, cut to keep the script within
+half its time limit: SD3.5-large runs the 2-branch stylization phase only
+(its stylized-only forward has the reconstruction forward's shape).
 """
 
 from __future__ import annotations
@@ -379,11 +402,44 @@ def phase_kernels():
         _vfa_tokens_case(2, 16, 24, 4429, 4096, 64, idx, bf, lc=333, plant=True),  # 2-branch
         _vfa_tokens_case(1, 16, 24, 4429, 4096, 64, idx, bf, lc=333),  # inversion, solo phase
         _vfa_tokens_case(2, 16, 24, 4096, 4096, 64, idx, bf),  # SD3.5-M dual attention
+        # SD3.5-large: 38 heads, the 2-branch and the B = 1 forwards
+        _vfa_tokens_case(2, 16, 38, 4429, 4096, 64, idx, bf, lc=333, plant=True),
+        _vfa_tokens_case(1, 16, 38, 4429, 4096, 64, idx, bf, lc=333, plant=True),
         _vfa_tokens_case(1, 3, 2, 333, 200, 64, idx, bf, lc=20),  # ragged Lq, L and ctx
         _vfa_tokens_case(1, 4, 3, 300, 256, 64, idx, torch.float32, lc=77),  # ragged Lq, fp32
     ]
     _sync()
+    _dispatch_us()
     return cases, tokens
+
+
+def _dispatch_us(calls: int = 2000) -> dict:
+    """Host microseconds per call, on a tiny K1 shape where the host sets
+    the pace: the wrapper (checks, the ``univst::video_flash_attention``
+    custom op, launch) against the bare launch it ends in."""
+    import torch
+
+    from univst_torch.attention import video_flash as vf
+
+    q = torch.randn(1, 2, 1, 64, 64, device="cuda", dtype=torch.bfloat16)
+    idx = ("first", -1)
+
+    def per_call(fn):
+        fn()
+        _sync()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        _sync()
+        return (time.perf_counter() - t) / calls * 1e6
+
+    out = dict(shape=list(q.shape), calls=calls,
+               wrapper_us=per_call(lambda: vf.video_flash_attention(q, q, q, idx)),
+               launch_us=per_call(lambda: vf._launch("univst_video_flash_attention", q, q, q,
+                                                     idx, None, None, None, None, h=1, lq=64,
+                                                     l=64, lc=0)))
+    print("[dispatch] " + json.dumps(out), flush=True)
+    return out
 
 
 def _zero_counters():
@@ -947,32 +1003,48 @@ def _ad_psnr_ladder(pipe, z0, ctx, steps: int):
     del sd_unet, sd_pipe
 
 
-def phase_sd3(steps: int, px: int = 1024):
-    """SD3-medium widths, ``px`` px, 16 frames, bf16, on the card."""
+SD3_VARIANTS = {  # tag: (pipeline variant, what is built)
+    "sd3": ("sd3", "sd3-medium"),
+    "sd35m": ("sd35m", "sd3.5-medium"),
+    "sd35l": ("sd35", "sd3.5-large"),
+}
+
+
+def phase_sd3(tag: str, steps: int, nf: int = 16, px: int = 1024):
+    """One SD3-family model (``SD3_VARIANTS[tag]``) at full width, ``px`` px,
+    ``nf`` frames, bf16, on the card; returns the K2 / K1 launches and, for
+    the profile, ``(pipe, the content trajectory's middle latents, ctx,
+    pooled)``."""
     import torch
 
     from univst_torch.core.adain import latent_adain_sd3
     from univst_torch.core.config import StyleTransferConfig
     from univst_torch.pipelines.sd3 import SD3VideoPipeline
 
-    nf, device, block, cap_step = 16, "cuda", 20, 5
+    variant, label = SD3_VARIANTS[tag]
+    device, block, cap_step = "cuda", 20, 5
     frames, style, mask0 = _load_inputs(nf, px)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    pipe = SD3VideoPipeline.build(variant="sd3", num_frames=nf, dtype=torch.bfloat16,
+    pipe = SD3VideoPipeline.build(variant=variant, num_frames=nf, dtype=torch.bfloat16,
                                   capture_block=block, seed=0, device=device)
     _sync()
-    print(f"[sd3] built sd3-medium + T5-XXL + CLIP-L/G (random weights, seed 0) in "
-          f"{time.time() - t0:.1f}s", flush=True)
+    mcfg = pipe.mmdit.cfg
+    print(f"[{tag}] built {label} ({mcfg.num_layers} blocks, {mcfg.num_heads} heads of "
+          f"{mcfg.head_dim}, {len(mcfg.dual_attention_layers)} dual-attention blocks) + T5-XXL "
+          f"+ CLIP-L/G (random weights, seed 0) in {time.time() - t0:.1f}s; "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     gen = torch.Generator(device=device).manual_seed(0)
-    stage = {}
+    stage, peak = {}, {}
 
     def run(name, fn):
+        torch.cuda.reset_peak_memory_stats()
         t = time.time()
         out = fn()
         _sync()
         stage[name] = time.time() - t
-        print(f"[sd3] {name}: {stage[name]:.2f}s", flush=True)
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[{tag}] {name}: {stage[name]:.2f}s, peak {peak[name]:.2f} GB", flush=True)
         return out
 
     counters = _zero_counters()
@@ -1008,24 +1080,105 @@ def phase_sd3(steps: int, px: int = 1024):
     main_s = time.time() - t_main
     launches = {name: fn.launches for name, fn in counters.items()}
 
-    if tuple(feat.shape) != (nf, px // 16, px // 16, pipe.mmdit.cfg.hidden):
+    p = mcfg.patch_size
+    if tuple(feat.shape) != (nf, latents.shape[1] // p, latents.shape[2] // p, mcfg.hidden):
         raise AssertionError(f"captured feature {tuple(feat.shape)}")
     psnr = _check_outputs({"context": ctx, "pooled": pooled, "trajectory": traj,
                            "feature": feat, "style trajectory": straj,
                            "stylized latents": out, "reconstruction": rec},
                           masks, video, nf, px, traj[0], rec)
-    # 24 blocks x (two RF-Solver forwards + one reconstruction forward + one
-    # 2x16- or 16-frame stylization forward) per step
+    # one K2 launch per joint and per dual attention of each of the step's
+    # four video forwards (two RF-Solver forwards, one reconstruction
+    # forward, one 2x16- or 16-frame stylization forward)
+    per_forward = mcfg.num_layers + len(mcfg.dual_attention_layers)
     _check_launches(launches, {"video_flash_attention": 0,
-                               "video_flash_attention_tokens": 24 * 4 * steps})
-    summary = dict(steps=steps, frames=nf, size=px, stage_s=stage, main_path_s=main_s,
+                               "video_flash_attention_tokens": per_forward * 4 * steps})
+    summary = dict(model=label, blocks=mcfg.num_layers, heads=mcfg.num_heads,
+                   dual_attention_blocks=len(mcfg.dual_attention_layers), steps=steps,
+                   frames=nf, size=px, stage_s=stage, main_path_s=main_s,
                    workflow_frames_per_s=nf / main_s,
                    stylize_frames_per_s=nf / (stage["stylize"] + stage["decode"]),
                    recon_latent_psnr_db=psnr, launches=launches,
+                   k2_launches_per_forward=per_forward,
                    masks_foreground=float((masks > 0).float().mean().item()),
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"[sd3] {json.dumps(summary)}", flush=True)
+                   peak_mem_gb_by_stage=peak, peak_mem_gb=max(peak.values()))
+    print(f"[{tag}] {json.dumps(summary)}", flush=True)
+    return launches, (pipe, traj[steps // 2], ctx, pooled)
+
+
+def _profile_forward(name: str, model, fn, want_launches: dict) -> dict:
+    """One forward ``fn`` of ``model``: its time over two untraced calls
+    after a warm-up (CUDA events), one ``torch.profiler`` trace split by
+    kind of kernel (the norms' kernels found by annotating ``model``'s norm
+    modules) with the launches in it checked against ``want_launches``, and
+    its matmul / conv / attention FLOPs from one more call under the
+    counter. Returns the launches in the trace. The trace's own host cost
+    stretches its span, so the idle share is also given against the
+    untraced time (``idle_share_untraced``: 1 - busy / forward_ms)."""
+    import torch
+
+    from univst_torch.utils.flops import count_matmul_flops
+    from univst_torch.utils.profiling import annotate_norms, device_time_split, device_trace
+
+    with torch.inference_mode():
+        ms = _time_ms(fn, 2)
+        counters = _zero_counters()
+        with annotate_norms(model), device_trace(
+                os.path.join(REPO, "results", "profile", name)) as prof:
+            fn()
+        launches = {k: f.launches for k, f in counters.items()}
+        flops = count_matmul_flops(fn)
+        _sync()
+    split = device_time_split(prof)
+    if not split["device_time_seen"]:
+        raise AssertionError(f"profile {name}: {split['note']}")
+    _check_launches(launches, want_launches)
+    print("[profile] " + json.dumps(dict(
+        forward=name, forward_ms=ms, launches_in_trace=launches, flops=flops,
+        effective_tflops=flops / ms / 1e9, mfu=flops / (ms * 1e-3) / PEAK_BF16,
+        idle_share_untraced=1.0 - split["busy_ms"] / ms, **split)), flush=True)
     return launches
+
+
+def phase_profile_sd(sd_state, steps: int) -> dict:
+    """The SD-1.5 forwards of the profile: 16 frames at 512 px, B = 1 (the
+    inversion's and reconstruction's forward, 10 K1 launches) and the
+    injected 2-branch stylization forward (B = 2, the style branch's K/V
+    captured by a single-frame forward beforehand; 10 K1 launches)."""
+    import torch
+
+    from univst_torch.core.config import SD_BASE_FRAME_INDICES
+    from univst_torch.models.layers import StyleCtx, VideoCtx
+    from univst_torch.models.unet_sd import extract_pnp_kv
+
+    pipe, traj, straj, ctx, _, _ = sd_state
+    i = steps // 2
+    t = int(pipe.schedule.timesteps(steps)[i])
+    z = traj[i]
+    one = pipe._denoise_fn(ctx, SD_BASE_FRAME_INDICES, None)
+    with torch.inference_mode():
+        cap = StyleCtx(step_idx=0, cfg=pipe.style_shift_cfg, capture=True)
+        pipe.unet(straj[i, :1].to(pipe.dtype), t, ctx, VideoCtx(num_frames=1, frame_indices=()),
+                  cap)
+        kv = extract_pnp_kv(cap.captured)
+    two = pipe._denoise_fn(torch.cat([ctx, ctx]), pipe.pnp_frame_indices, pipe.style_shift_cfg)
+    z2 = torch.cat([z, z])
+    k1 = {"video_flash_attention": 10, "video_flash_attention_tokens": 0}
+    got = [_profile_forward("sd15_b1", pipe.unet, lambda: one(z, t, i), k1),
+           _profile_forward("sd15_b2", pipe.unet, lambda: two(z2, t, 5, style_kv=kv), k1)]
+    return {k: sum(g[k] for g in got) for k in k1}
+
+
+def phase_profile_sd35m(state) -> dict:
+    """The SD3.5-medium forward of the profile: 16 frames at 1024 px, B = 1
+    (37 K2 launches: 24 joint attentions with context, 13 dual without)."""
+    pipe, z, ctx, pooled = state
+    cfg = pipe.mmdit.cfg
+    t = float(pipe.schedule.timesteps(8, mu=pipe._mu(*z.shape[1:3]))[4])
+    one = pipe._denoise_fn(ctx, pooled, None)
+    return _profile_forward("sd35m_b1", pipe.mmdit, lambda: one(z, t, 0), {
+        "video_flash_attention": 0,
+        "video_flash_attention_tokens": cfg.num_layers + len(cfg.dual_attention_layers)})
 
 
 def _entry(name, replaces, launches, cases, main_case):
@@ -1044,7 +1197,10 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=30, help="SD-1.5 steps (>= 27: both phases)")
     p.add_argument("--ad_steps", type=int, default=30,
                    help="AnimateDiff steps (>= 26: both phases)")
-    p.add_argument("--sd3_steps", type=int, default=32, help="SD3 steps (>= 32: both phases)")
+    p.add_argument("--sd3_steps", type=int, default=32,
+                   help="SD3-medium and SD3.5-medium steps (>= 32: both phases)")
+    p.add_argument("--sd35l_steps", type=int, default=8,
+                   help="SD3.5-large steps (>= 32: both phases; 8 runs the 2-branch phase)")
     args = p.parse_args(argv)
     try:
         import torch
@@ -1072,6 +1228,7 @@ def main(argv=None) -> int:
     phase_sd_linear_betas(sd_state, args.steps)
     phase_lk_shift()
     smooth_launches, smooth_frames = phase_smooth(sd_state, args.steps)
+    profile_launches = phase_profile_sd(sd_state, args.steps)
     del sd_state
     torch.cuda.empty_cache()
     phase_raft(smooth_frames)
@@ -1079,16 +1236,25 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_ad(args.ad_steps)
     torch.cuda.empty_cache()
-    sd3_launches = phase_sd3(args.sd3_steps)
+    sd3_launches = {"sd3": phase_sd3("sd3", args.sd3_steps)[0]}
+    torch.cuda.empty_cache()
+    sd3_launches["sd35m"], sd35m_state = phase_sd3("sd35m", args.sd3_steps)
+    for k, v in phase_profile_sd35m(sd35m_state).items():
+        profile_launches[k] += v
+    del sd35m_state
+    torch.cuda.empty_cache()
+    sd3_launches["sd35l"], _ = phase_sd3("sd35l", args.sd35l_steps)
 
-    k1_paths = {"sd": sd_launches, "sd_fallback": fallback_launches, "smooth": smooth_launches}
+    k1_paths = {"sd": sd_launches, "sd_fallback": fallback_launches, "smooth": smooth_launches,
+                "profile": profile_launches}
     k1_paths = {k: v["video_flash_attention"] for k, v in k1_paths.items()}
+    k2_paths = dict(sd3_launches, profile=profile_launches)
+    k2_paths = {k: v["video_flash_attention_tokens"] for k, v in k2_paths.items()}
     entries = [
         dict(_entry("video_flash_attention", TPU_KERNEL, sum(k1_paths.values()), cases, cases[0]),
              launches_by_path=k1_paths),
-        dict(_entry("video_flash_attention_tokens", TPU_KERNEL_FOLDED,
-                    sd3_launches["video_flash_attention_tokens"], tokens, tokens[0]),
-             launches_by_path={"sd3": sd3_launches["video_flash_attention_tokens"]}),
+        dict(_entry("video_flash_attention_tokens", TPU_KERNEL_FOLDED, sum(k2_paths.values()),
+                    tokens, tokens[0]), launches_by_path=k2_paths),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi)

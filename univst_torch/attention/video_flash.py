@@ -32,6 +32,13 @@ addressing, with a C entry point each.
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. ``video_flash_attention.launches`` and
 ``video_flash_attention_tokens.launches`` count kernel launches, apart.
+
+Each wrapper calls a PyTorch custom op (``univst::video_flash_attention``,
+``univst::video_flash_attention_tokens``), whose body runs the plain version
+or the launch. The op is one unit to PyTorch's dispatcher: the profiler
+names it, and ``torch.utils.flop_counter.FlopCounterMode`` counts it with
+the formula registered here (:func:`work`'s FLOPs) instead of the plain
+version's matmuls, which run duplicate slots that the kernels skip.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from univst_torch.attention.ops import resolve_frame_indices
 
@@ -192,6 +200,43 @@ def _launch(symbol: str, q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_val
     return out
 
 
+def _encode_indices(frame_indices: Sequence) -> str:
+    """A frame index set as the custom ops take it, e.g. ``"first,-1,0"``."""
+    return ",".join(str(i) for i in frame_indices)
+
+
+def _decode_indices(frame_indices: str) -> tuple:
+    return tuple(int(i) if i.lstrip("-").isdigit() else i for i in frame_indices.split(","))
+
+
+def _op_args(sm_scale, ctx_valid):
+    return (None if sm_scale is None else float(sm_scale),
+            None if ctx_valid is None else int(ctx_valid))
+
+
+@torch.library.custom_op("univst::video_flash_attention", mutates_args=())
+def _video_flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              frame_indices: str, sm_scale: Optional[float],
+                              ctx_k: Optional[torch.Tensor], ctx_v: Optional[torch.Tensor],
+                              ctx_valid: Optional[int]) -> torch.Tensor:
+    idx = _decode_indices(frame_indices)
+    if q.device.type == "cpu":
+        return video_flash_attention_plain(q, k, v, idx, sm_scale, ctx_k, ctx_v, ctx_valid)
+    out = _launch("univst_video_flash_attention", q, k, v, idx, sm_scale, ctx_k,
+                  ctx_v, ctx_valid, h=q.shape[2], lq=q.shape[3], l=k.shape[3],
+                  lc=ctx_k.shape[3] if ctx_k is not None else 0)
+    video_flash_attention.launches += 1
+    return out
+
+
+@register_flop_formula(torch.ops.univst.video_flash_attention)
+def _video_flash_attention_flops(q, k, v, frame_indices, sm_scale=None, ctx_k=None, ctx_v=None,
+                                 ctx_valid=None, *args, out_shape=None, **kwargs) -> int:
+    b, f, h, lq, dh = q
+    return int(work((b, f, h, lq, k[3], dh), _decode_indices(frame_indices),
+                    ctx_valid or 0).flops)
+
+
 def video_flash_attention(q, k, v, frame_indices: Sequence, sm_scale: Optional[float] = None,
                           ctx_k=None, ctx_v=None, ctx_valid: Optional[int] = None):
     """Attention where each frame's KV is the concatenation of the frames
@@ -209,16 +254,11 @@ def video_flash_attention(q, k, v, frame_indices: Sequence, sm_scale: Optional[f
     if ctx_k is not None and ctx_valid is None:
         ctx_valid = ctx_k.shape[3]
     _check(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid)
-    if q.device.type == "cpu":
-        return video_flash_attention_plain(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v,
-                                           ctx_valid)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"video_flash_attention runs on CPU or CUDA, not {q.device}")
-    out = _launch("univst_video_flash_attention", q, k, v, frame_indices, sm_scale, ctx_k,
-                  ctx_v, ctx_valid, h=q.shape[2], lq=q.shape[3], l=k.shape[3],
-                  lc=ctx_k.shape[3] if ctx_k is not None else 0)
-    video_flash_attention.launches += 1
-    return out
+    sm_scale, ctx_valid = _op_args(sm_scale, ctx_valid)
+    return _video_flash_attention_op(q, k, v, _encode_indices(frame_indices), sm_scale, ctx_k,
+                                     ctx_v, ctx_valid)
 
 
 video_flash_attention.launches = 0
@@ -237,6 +277,32 @@ def video_flash_attention_tokens_plain(q, k, v, frame_indices: Sequence,
         _head_major(q), _head_major(k), _head_major(v), frame_indices, sm_scale,
         _head_major(ctx_k), _head_major(ctx_v), ctx_valid)
     return out.transpose(2, 3).contiguous()
+
+
+@torch.library.custom_op("univst::video_flash_attention_tokens", mutates_args=())
+def _video_flash_attention_tokens_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     frame_indices: str, sm_scale: Optional[float],
+                                     ctx_k: Optional[torch.Tensor],
+                                     ctx_v: Optional[torch.Tensor],
+                                     ctx_valid: Optional[int]) -> torch.Tensor:
+    idx = _decode_indices(frame_indices)
+    if q.device.type == "cpu":
+        return video_flash_attention_tokens_plain(q, k, v, idx, sm_scale, ctx_k, ctx_v,
+                                                  ctx_valid)
+    out = _launch("univst_video_flash_attention_tokens", q, k, v, idx, sm_scale,
+                  ctx_k, ctx_v, ctx_valid, h=q.shape[3], lq=q.shape[2], l=k.shape[2],
+                  lc=ctx_k.shape[2] if ctx_k is not None else 0)
+    video_flash_attention_tokens.launches += 1
+    return out
+
+
+@register_flop_formula(torch.ops.univst.video_flash_attention_tokens)
+def _video_flash_attention_tokens_flops(q, k, v, frame_indices, sm_scale=None, ctx_k=None,
+                                        ctx_v=None, ctx_valid=None, *args, out_shape=None,
+                                        **kwargs) -> int:
+    b, f, lq, h, dh = q
+    return int(work((b, f, h, lq, k[2], dh), _decode_indices(frame_indices),
+                    ctx_valid or 0).flops)
 
 
 def video_flash_attention_tokens(q, k, v, frame_indices: Sequence,
@@ -258,16 +324,11 @@ def video_flash_attention_tokens(q, k, v, frame_indices: Sequence,
     if ctx_k is not None and ctx_valid is None:
         ctx_valid = ctx_k.shape[2]
     _check(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid, seq_axis=2)
-    if q.device.type == "cpu":
-        return video_flash_attention_tokens_plain(q, k, v, frame_indices, sm_scale, ctx_k,
-                                                  ctx_v, ctx_valid)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"video_flash_attention_tokens runs on CPU or CUDA, not {q.device}")
-    out = _launch("univst_video_flash_attention_tokens", q, k, v, frame_indices, sm_scale,
-                  ctx_k, ctx_v, ctx_valid, h=q.shape[3], lq=q.shape[2], l=k.shape[2],
-                  lc=ctx_k.shape[2] if ctx_k is not None else 0)
-    video_flash_attention_tokens.launches += 1
-    return out
+    sm_scale, ctx_valid = _op_args(sm_scale, ctx_valid)
+    return _video_flash_attention_tokens_op(q, k, v, _encode_indices(frame_indices), sm_scale,
+                                            ctx_k, ctx_v, ctx_valid)
 
 
 video_flash_attention_tokens.launches = 0

@@ -178,16 +178,11 @@ def _motion_module(e: _Emitter, src: str, dst: str, cfg):
         e.norm(f"{tb}.ff_norm", f"{db}_ff_norm")
 
 
-def flax_ad_unet_to_state_dict(params: Mapping, cfg) -> Dict[str, np.ndarray]:
-    """The JAX ``UNetAnimateDiff`` params, 2D part and motion modules, as the
-    port's ``UNetAnimateDiff`` state dict: diffusers keys for the 2D part,
-    ``mm_sd_v15_v2`` keys for the motion modules."""
-    e = _Emitter(params)
+def _ad_encoder(e: _Emitter, cfg) -> None:
+    """The AnimateDiff UNet's down blocks and mid block (2D part and motion
+    modules), shared by the UNet and the SparseControlNet."""
     n = len(cfg.block_out_channels)
     lin = cfg.use_linear_projection
-    e.conv2d("conv_in", "conv_in")
-    e.linear("time_embedding.linear_1", "time_embedding/linear_1")
-    e.linear("time_embedding.linear_2", "time_embedding/linear_2")
     for i in range(n):
         for j in range(cfg.layers_per_block):
             _unet_resnet(e, f"down_blocks.{i}.resnets.{j}", f"down_{i}_resnet_{j}")
@@ -201,6 +196,19 @@ def flax_ad_unet_to_state_dict(params: Mapping, cfg) -> Dict[str, np.ndarray]:
     if cfg.motion_mid_block:
         _motion_module(e, "mid_block.motion_modules.0", "mid_motion", cfg)
     _unet_resnet(e, "mid_block.resnets.1", "mid_resnet_1")
+
+
+def flax_ad_unet_to_state_dict(params: Mapping, cfg) -> Dict[str, np.ndarray]:
+    """The JAX ``UNetAnimateDiff`` params, 2D part and motion modules, as the
+    port's ``UNetAnimateDiff`` state dict: diffusers keys for the 2D part,
+    ``mm_sd_v15_v2`` keys for the motion modules."""
+    e = _Emitter(params)
+    n = len(cfg.block_out_channels)
+    lin = cfg.use_linear_projection
+    e.conv2d("conv_in", "conv_in")
+    e.linear("time_embedding.linear_1", "time_embedding/linear_1")
+    e.linear("time_embedding.linear_2", "time_embedding/linear_2")
+    _ad_encoder(e, cfg)
     for i in range(n):
         for j in range(cfg.layers_per_block + 1):
             _unet_resnet(e, f"up_blocks.{i}.resnets.{j}", f"up_{i}_resnet_{j}")
@@ -211,6 +219,32 @@ def flax_ad_unet_to_state_dict(params: Mapping, cfg) -> Dict[str, np.ndarray]:
             e.conv2d(f"up_blocks.{i}.upsamplers.0.conv", f"up_{i}_upsample")
     e.norm("conv_norm_out", "conv_norm_out")
     e.conv2d("conv_out", "conv_out")
+    return e.out
+
+
+def flax_sparse_controlnet_to_state_dict(params: Mapping, cfg) -> Dict[str, np.ndarray]:
+    """The JAX ``SparseControlNet`` params as the port's ``SparseControlNet``
+    state dict (the key names of the public AnimateDiff SparseCtrl
+    checkpoints, see ``univst_torch.models.sparse_controlnet``)."""
+    e = _Emitter(params)
+    e.conv2d("conv_in", "conv_in")
+    e.linear("time_embedding.linear_1", "time_embedding/linear_1")
+    e.linear("time_embedding.linear_2", "time_embedding/linear_2")
+    if cfg.use_simplified_condition_embedding:
+        e.conv2d("controlnet_cond_embedding", "cond_embed_simple")
+    else:
+        e.conv2d("controlnet_cond_embedding.conv_in", "cond_embedding/conv_in")
+        for i in range(len(cfg.cond_embed_channels) - 1):
+            e.conv2d(f"controlnet_cond_embedding.blocks.{2 * i}", f"cond_embedding/block_{i}_a")
+            e.conv2d(f"controlnet_cond_embedding.blocks.{2 * i + 1}",
+                     f"cond_embedding/block_{i}_b")
+        e.conv2d("controlnet_cond_embedding.conv_out", "cond_embedding/conv_out")
+    _ad_encoder(e, cfg.unet)
+    r = 0
+    while e.has(f"ctrl_down_{r}"):
+        e.conv2d(f"controlnet_down_blocks.{r}", f"ctrl_down_{r}")
+        r += 1
+    e.conv2d("controlnet_mid_block", "ctrl_mid")
     return e.out
 
 
