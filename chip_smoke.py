@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SD-1.5 (with and without the pixel smoother),
 AnimateDiff-v2, SD3-medium, SD3.5-medium and SD3.5-large workflows on one
-NVIDIA GPU, and profile three of its forwards.
+NVIDIA GPU, profile three of its forwards, and run the SD-1.5 and
+AnimateDiff workflows frame-parallel as ranks that share the card.
 
     python3 chip_smoke.py [--steps N] [--ad_steps N] [--sd3_steps N] [--sd35l_steps N]
 
@@ -91,19 +92,40 @@ none catches its own failure:
    launches in it checked, and its matmul / conv / attention FLOPs
    (``univst_torch.utils.flops``: effective TFLOP/s and MFU against 989
    TFLOP/s).
+11. Frame parallelism (``[mesh]``, ``univst_torch.distributed``): K1's
+   shard form (q of a rank's frames, K/V of its frames and the halo frames
+   its index set reads, explicit slot tables; rank 1 of 2 at
+   ``[2,8,8,4096,40]``, both index sets, rank 2 of 4 at ``[2,4,...]``,
+   the 32x32 level) against its plain version and against the unsharded
+   16-frame call's rows, a slot table shifted by one frame that the check
+   must reject, and K2's shard form on one case. Then jobs of 2 or 4
+   ranks (``torch.multiprocessing`` spawn, gloo over a file store, every
+   rank on ``cuda:0``, a process-group timeout of 300 s): SD-1.5 bf16 at
+   512 px / 16 frames over 2 ranks against ``[main]``; SD-1.5 fp32 at 256
+   px / 8 frames / 6 steps over 2 and 4 ranks against a one-process fp32
+   run; AnimateDiff-v2 bf16 at 512 px / 16 frames / 10 steps
+   over 2 ranks against a one-process run. Each rank prints its stage
+   seconds, its collective census per stage and per inversion forward, the
+   host milliseconds in collectives, its peak memory and its launches (K1:
+   10 per SD forward at 512 px, 5 at 256 px). Gated: the workflow finite,
+   its masks equal on >= 99.5% of the pixels, and two forwards on the
+   reference's inputs (``_forward_pair``): with the UNet in fp32 within
+   rtol 2e-4 / atol 2e-5, and, for the bf16 jobs, in bf16 no further from
+   the reference's fp32 forward than the reference's own bf16 forward is,
+   up to ``MESH_BF16_RATIO``. Reported: the workflow bars (``_compare``).
 
 Each path's launch counters are zeroed just before it and read just after;
 a kernel's ``launches`` in the JSON line is the sum over its paths, each
 path's own count under ``launches_by_path`` (K1: the SD, SD-fallback,
-smoother and profile paths; K2: SD3-medium, SD3.5-medium, SD3.5-large and
-profile). The last line is ``{"ok": true, "device": {...}}``; the lines
+smoother, profile and mesh paths; K2: SD3-medium, SD3.5-medium,
+SD3.5-large, profile and mesh). The last line is ``{"ok": true, "device": {...}}``; the lines
 before it hold the per-kernel JSON and the card's name and power limit. Any
 failed check exits non-zero. ``--steps`` (SD-1.5) and ``--ad_steps``
 default to 30 and ``--sd3_steps`` (SD3-medium and SD3.5-medium) to 32: the
 fewest that run both stylization phases (the shift windows of the 50-step
 constants close after step 25 (SD), 24 (AD) and 30 (SD3)); 50 is the full
 workload. ``--sd35l_steps`` defaults to 8, cut to keep the script within
-half its time limit: SD3.5-large runs the 2-branch stylization phase only
+its time limit: SD3.5-large runs the 2-branch stylization phase only
 (its stylized-only forward has the reconstruction forward's shape).
 """
 
@@ -290,19 +312,20 @@ def _vfa_case(b, f, h, l, dh, idx, dtype, lq=None, lc=None, ctx_valid=None, reps
     return case
 
 
-def _bound(shape, idx, ctx_valid: int, dtype) -> dict:
+def _bound(shape, idx, ctx_valid: int, dtype, tables=None) -> dict:
     """The card's least time for one call: the largest of its tensor FLOPs at
     the peak rate of ``dtype``, its exponentials on the MUFU and the FMA pipe
     together (``_exp_rate``), and its bytes at the memory rate. ``bound_by``
     is ``operations`` when either operation term wins (``bound_unit`` says
     which: ``tensor`` or ``exp``) and ``bytes`` otherwise. The terms, and
     the exponentials' time on the MUFU alone, go on a ``[bound]`` line: they
-    are computed from shapes, not measured."""
+    are computed from shapes (and a shard form's slot ``tables``), not
+    measured."""
     import torch
 
     from univst_torch.attention.video_flash import work
 
-    w = work(shape, idx, ctx_valid, itemsize=torch.finfo(dtype).bits // 8)
+    w = work(shape, idx, ctx_valid, itemsize=torch.finfo(dtype).bits // 8, tables=tables)
     terms = {"tensor": w.flops / (PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32) * 1e3,
              "exp": w.exps / _exp_rate() * 1e3, "bytes": w.bytes / PEAK_BYTES * 1e3}
     unit = max(terms, key=terms.get)
@@ -528,54 +551,58 @@ def _load_inputs(num_frames: int, px: int, style_frames: int = 1):
     return frames, style, mask0
 
 
-def phase_main_path(steps: int):
-    """SD-1.5 at 512 px, 16 frames, bf16, on the card."""
+def _workflow(pipe, backbone: str, steps: int, nf: int, px: int, tag: str) -> dict:
+    """The workflow as a user drives it, on the committed demo corpus:
+    encode, content inversion with EasyInv and the up-block-2 feature
+    captured, style inversion (SD: one frame; AnimateDiff: all ``nf``),
+    mask propagation, stylization (SD: from the AdaIN-shifted content
+    noise, the singleton style; AnimateDiff: from the raw content noise),
+    the chunked temporal-VAE decode (8 frames a chunk) and the inversion ->
+    reconstruction round trip. Each stage's seconds (host clock around work
+    that ends in a synchronise) and, under a mesh, its collectives
+    (``distributed.census``) are kept."""
     import torch
 
     from univst_torch.core.adain import latent_adain
     from univst_torch.core.config import StyleTransferConfig
-    from univst_torch.pipelines.sd import SDVideoPipeline
+    from univst_torch.distributed.census import collect_collectives, summarize
 
-    nf, px, device = 16, 512, "cuda"
-    frames, style, mask0 = _load_inputs(nf, px)
-    t0 = time.time()
-    pipe = SDVideoPipeline.build(variant="sd15", num_frames=nf, dtype=torch.bfloat16,
-                                 capture_up_block=2, seed=0, device=device)
-    _sync()
-    print(f"[main] built sd15 (random weights, seed 0) in {time.time() - t0:.1f}s", flush=True)
+    device = pipe.device
+    frames, style, mask0 = _load_inputs(nf, px, style_frames=1 if backbone == "sd" else nf)
     ts = pipe.schedule.timesteps(steps)
     cap_t = 301 if 301 in ts else int(ts[len(ts) // 2])
     gen = torch.Generator(device=device).manual_seed(0)
-    stage = {}
+    stage, census = {}, {}
 
     def run(name, fn):
         t = time.time()
-        out = fn()
-        _sync()
+        with collect_collectives() as recs:
+            out = fn()
+            _sync()
         stage[name] = time.time() - t
-        print(f"[main] {name}: {stage[name]:.2f}s", flush=True)
+        census[name] = summarize(recs, by_site=True)
+        print(f"[{tag}] {name}: {stage[name]:.2f}s", flush=True)
         return out
 
-    counters = _zero_counters()
     t_main = time.time()
     latents, ctx = run("encode", lambda: (pipe.encode_frames(frames, gen), pipe.encode_text("")))
     traj, feat = run("content_inversion", lambda: pipe.invert(
         latents, ctx, num_steps=steps, is_opt=True, capture_timestep=cap_t))
-    spipe = pipe.with_frames(1)
-
-    def style_inversion():
-        straj, _ = spipe.invert(spipe.encode_frames(style, gen), ctx, num_steps=steps,
-                                is_opt=False)
-        return straj
-
-    straj = run("style_inversion", style_inversion)
-
+    # SD: one frame (every frame of the repeated style image evolves alike);
+    # AnimateDiff: all frames (the motion modules tell them apart)
+    spipe = pipe.with_frames(1) if backbone == "sd" else pipe
+    straj = run("style_inversion", lambda: spipe.invert(
+        spipe.encode_frames(style, gen), ctx, num_steps=steps, is_opt=False)[0])
     masks = run("mask_propagation", lambda: _propagate(feat, mask0, device))
 
     def stylize():
         content_rev = torch.flip(traj, dims=[0])
-        style_rev = torch.flip(straj, dims=[0])[:, :1]
-        init = latent_adain(content_rev[0], style_rev[0])
+        style_rev = torch.flip(straj, dims=[0])
+        if backbone == "sd":
+            style_rev = style_rev[:, :1]
+            init = latent_adain(content_rev[0], style_rev[0])
+        else:  # the AnimateDiff runner starts from the raw content noise
+            init = content_rev[0]
         return pipe.stylize_latents(content_rev, style_rev, init, torch.cat([ctx] * 3),
                                     mask=masks.float() / 255.0,
                                     cfg=StyleTransferConfig(num_steps=steps))
@@ -583,26 +610,49 @@ def phase_main_path(steps: int):
     out = run("stylize", stylize)
     chunks = run("decode", lambda: pipe.decode_latents_uint8_chunks(out, 8))
     rec = run("reconstruction", lambda: pipe.reconstruct_latents(traj[-1], ctx, num_steps=steps))
-    main_s = time.time() - t_main
+    return dict(latents=latents, ctx=ctx, traj=traj, feat=feat, straj=straj, masks=masks,
+                out=out, video=torch.cat(chunks), rec=rec, stage=stage, census=census,
+                main_s=time.time() - t_main)
+
+
+def phase_main_path(steps: int):
+    """SD-1.5 at 512 px, 16 frames, bf16, on the card."""
+    import torch
+
+    from univst_torch.pipelines.sd import SDVideoPipeline
+
+    nf, px, device = 16, 512, "cuda"
+    t0 = time.time()
+    pipe = SDVideoPipeline.build(variant="sd15", num_frames=nf, dtype=torch.bfloat16,
+                                 capture_up_block=2, seed=0, device=device)
+    _sync()
+    print(f"[main] built sd15 (random weights, seed 0) in {time.time() - t0:.1f}s", flush=True)
+
+    counters = _zero_counters()
+    w = _workflow(pipe, "sd", steps, nf, px, "main")
     launches = {name: fn.launches for name, fn in counters.items()}
 
-    video = torch.cat(chunks)
-    psnr = _check_outputs({"trajectory": traj, "feature": feat, "style trajectory": straj,
+    traj, straj, masks, out, rec, stage = (w[k] for k in ("traj", "straj", "masks", "out", "rec",
+                                                          "stage"))
+    psnr = _check_outputs({"trajectory": traj, "feature": w["feat"], "style trajectory": straj,
                            "stylized latents": out, "reconstruction": rec},
-                          masks, video, nf, px, traj[0], rec)
+                          masks, w["video"], nf, px, traj[0], rec)
     # one 16-frame UNet forward per step of the content inversion, the
     # reconstruction and the stylization (the style branch runs single-frame),
     # each with the sparse-causal attentions at L >= 1024: 5 at 64x64, 5 at 32x32
     _check_launches(launches, {"video_flash_attention": 10 * 3 * steps,
                                "video_flash_attention_tokens": 0})
-    summary = dict(steps=steps, frames=nf, size=px, stage_s=stage, main_path_s=main_s,
-                   workflow_frames_per_s=nf / main_s,
+    summary = dict(steps=steps, frames=nf, size=px, stage_s=stage, main_path_s=w["main_s"],
+                   workflow_frames_per_s=nf / w["main_s"],
                    stylize_frames_per_s=nf / (stage["stylize"] + stage["decode"]),
                    recon_latent_psnr_db=psnr, launches=launches,
                    masks_foreground=float((masks > 0).float().mean().item()),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"[main] {json.dumps(summary)}", flush=True)
-    return launches, (pipe, traj, straj, ctx, masks, out)
+    main_ref = {k: w[k].cpu() for k in ("out", "video", "masks", "traj", "rec")}
+    main_ref["probe"] = _probe_inputs(pipe, w, steps)
+    main_ref["forward"] = _forward_pair(pipe, main_ref["probe"])
+    return launches, (pipe, traj, straj, w["ctx"], masks, out), main_ref
 
 
 def phase_sd_fallback(sd_state, steps: int):
@@ -868,77 +918,49 @@ def _fill_motion_proj_out(unet, seed: int) -> int:
     return len(mods)
 
 
+def _build_ad(dtype, seed_proj_out: int = 1):
+    """AnimateDiff-v2 at full width (seed 0), every motion module's
+    ``proj_out`` filled from ``seed_proj_out``; returns (pipe, modules)."""
+    from univst_torch.pipelines.animatediff import build_animatediff
+
+    pipe = build_animatediff(variant="ad", num_frames=16, dtype=dtype, capture_up_block=2,
+                             seed=0, device="cuda")
+    return pipe, _fill_motion_proj_out(pipe.unet, seed=seed_proj_out)
+
+
 def phase_ad(steps: int):
     """AnimateDiff-v2 at 512 px, 16 frames, bf16, on the card."""
     import torch
 
-    from univst_torch.core.config import StyleTransferConfig
-    from univst_torch.pipelines.animatediff import build_animatediff
-
-    nf, px, device = 16, 512, "cuda"
-    frames, style, mask0 = _load_inputs(nf, px, style_frames=nf)
+    nf, px = 16, 512
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    pipe = build_animatediff(variant="ad", num_frames=nf, dtype=torch.bfloat16,
-                             capture_up_block=2, seed=0, device=device)
+    pipe, n_mm = _build_ad(torch.bfloat16)
     _sync()
     build_s = time.time() - t0
-    n_mm = _fill_motion_proj_out(pipe.unet, seed=1)
-    _sync()
     w_max = max(mm.temporal_transformer.proj_out.weight.abs().max().item()
                 for mm in pipe.unet.motion_modules())
     print(f"[ad] built AnimateDiff-v2 (SD-1.5 2D UNet + {n_mm} motion modules, SVD VAE, "
           f"CLIP-L; random weights, seed 0) in {build_s:.1f}s; proj_out of all "
           f"{n_mm} motion modules filled from seed 1 (max |w| {w_max:.4g})", flush=True)
-    ts = pipe.schedule.timesteps(steps)
-    cap_t = 301 if 301 in ts else int(ts[len(ts) // 2])
-    gen = torch.Generator(device=device).manual_seed(0)
-    stage = {}
-
-    def run(name, fn):
-        t = time.time()
-        out = fn()
-        _sync()
-        stage[name] = time.time() - t
-        print(f"[ad] {name}: {stage[name]:.2f}s", flush=True)
-        return out
 
     counters = _zero_counters()
-    t_main = time.time()
-    latents, ctx = run("encode", lambda: (pipe.encode_frames(frames, gen), pipe.encode_text("")))
-    traj, feat = run("content_inversion", lambda: pipe.invert(
-        latents, ctx, num_steps=steps, is_opt=True, capture_timestep=cap_t))
-    # the style image on all 16 frames: the motion modules tell them apart
-    straj, _ = run("style_inversion", lambda: pipe.invert(
-        pipe.encode_frames(style, gen), ctx, num_steps=steps, is_opt=False))
-    masks = run("mask_propagation", lambda: _propagate(feat, mask0, device))
-
-    def stylize():
-        content_rev = torch.flip(traj, dims=[0])
-        # the AnimateDiff runner starts from the raw content noise
-        return pipe.stylize_latents(content_rev, torch.flip(straj, dims=[0]), content_rev[0],
-                                    torch.cat([ctx] * 3), mask=masks.float() / 255.0,
-                                    cfg=StyleTransferConfig(num_steps=steps))
-
-    out = run("stylize", stylize)
-    chunks = run("decode", lambda: pipe.decode_latents_uint8_chunks(out, 8))
-    rec = run("reconstruction", lambda: pipe.reconstruct_latents(traj[-1], ctx, num_steps=steps))
-    main_s = time.time() - t_main
+    w = _workflow(pipe, "ad", steps, nf, px, "ad")
     launches = {name: fn.launches for name, fn in counters.items()}
 
-    video = torch.cat(chunks)
-    psnr = _check_outputs({"trajectory": traj, "feature": feat, "style trajectory": straj,
-                           "stylized latents": out, "reconstruction": rec},
-                          masks, video, nf, px, traj[0], rec)
+    traj, masks, rec, stage = w["traj"], w["masks"], w["rec"], w["stage"]
+    psnr = _check_outputs({"trajectory": traj, "feature": w["feat"],
+                           "style trajectory": w["straj"], "stylized latents": w["out"],
+                           "reconstruction": rec}, masks, w["video"], nf, px, traj[0], rec)
     _check_launches(launches, {"video_flash_attention": 0, "video_flash_attention_tokens": 0})
-    summary = dict(steps=steps, frames=nf, size=px, stage_s=stage, main_path_s=main_s,
-                   workflow_frames_per_s=nf / main_s,
+    summary = dict(steps=steps, frames=nf, size=px, stage_s=stage, main_path_s=w["main_s"],
+                   workflow_frames_per_s=nf / w["main_s"],
                    stylize_frames_per_s=nf / (stage["stylize"] + stage["decode"]),
                    recon_latent_psnr_db=psnr, launches=launches,
                    masks_foreground=float((masks > 0).float().mean().item()),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"[ad] {json.dumps(summary)}", flush=True)
-    _ad_psnr_ladder(pipe, latents, ctx, steps)
+    _ad_psnr_ladder(pipe, w["latents"], w["ctx"], steps)
     return launches
 
 
@@ -1181,6 +1203,432 @@ def phase_profile_sd35m(state) -> dict:
         "video_flash_attention_tokens": cfg.num_layers + len(cfg.dual_attention_layers)})
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: frame parallelism over gloo ranks that share the one card
+# ---------------------------------------------------------------------------
+
+MESH_PG_TIMEOUT_S = 300  # a hung collective raises after this
+MESH_AD_STEPS = 10  # the AnimateDiff job and its one-process reference
+# a sharded bf16 forward's relative RMS distance from the reference's fp32
+# forward, over the one-process bf16 forward's distance, at most this
+MESH_BF16_RATIO = 1.25
+MESH_JOBS = {
+    # name: backbone, dtype, px, frames, ranks
+    "sd_bf16_2": ("sd", "bf16", 512, 16, 2),
+    "sd_fp32_2": ("sd", "fp32", 256, 8, 2),
+    "sd_fp32_4": ("sd", "fp32", 256, 8, 4),
+    "ad_bf16_2": ("ad", "bf16", 512, 16, 2),
+}
+
+
+def _vfa_shard_case(b, nf, n, rank, h, l, dh, idx, dtype, reps=5, plant=False):
+    """K1's shard form on rank ``rank`` of ``n`` (global ``nf`` frames): q of
+    the rank's F = nf / n frames, k/v of its Fk = F + halo frames (its own,
+    then the halo frames its index set reads), the slot tables explicit.
+    Against its plain version (``_err_over_tol``), against the unsharded
+    ``nf``-frame call's rows of the same frames (bitwise equal or not), and,
+    with ``plant``, a slot table shifted by one frame, which the check must
+    reject. Times and the bound count the shard form's own work."""
+    import torch
+    import torch.nn.functional as F
+
+    from univst_torch.attention.ops import shard_kv_tables
+    from univst_torch.attention.video_flash import (
+        video_flash_attention, video_flash_attention_plain,
+    )
+
+    f = nf // n
+    off = rank * f
+    halo, srcs, mult = shard_kv_tables(tuple(idx), nf, off, f)
+    fk = f + len(halo)
+    gen = torch.Generator(device="cuda").manual_seed(l * dh + len(idx) + rank)
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(dtype)
+
+    qg, kg, vg = r(b, nf, h, l, dh), r(b, nf, h, l, dh), r(b, nf, h, l, dh)
+    rows = list(range(off, off + f)) + list(halo)
+    q = qg[:, off:off + f].contiguous()
+    k, v = kg[:, rows].contiguous(), vg[:, rows].contiguous()
+    tables = (srcs, mult)
+    got = video_flash_attention(q, k, v, idx, tables=tables)
+    whole = video_flash_attention(qg, kg, vg, idx)[:, off:off + f]
+    _sync()
+    want = video_flash_attention_plain(q, k, v, idx, tables=tables)
+    _sync()
+    err = (got.float() - want.float()).abs().max().item()
+    ratio = _err_over_tol(got, want)
+    if not ratio <= 1.0:
+        raise AssertionError(f"video_flash_attention shard form {tuple(q.shape)} Fk={fk} {idx}: "
+                             f"kernel vs plain at {ratio:.3g}x the tolerance (max abs err {err})")
+    planted = None
+    if plant:
+        wrong = video_flash_attention(q, k, v, idx, tables=((srcs + 1) % fk, mult))
+        planted = _err_over_tol(wrong, want)
+        if not planted > 1.0:
+            raise AssertionError(f"the check passed a slot table shifted by one frame "
+                                 f"({planted:.3g}x the tolerance)")
+        print(f"[kernel] planted fault (slot table one frame off) rejected at {planted:.3g}x "
+              f"the tolerance", flush=True)
+    ms = _time_ms(lambda: video_flash_attention(q, k, v, idx, tables=tables), reps)
+    plain_ms = _time_ms(lambda: video_flash_attention_plain(q, k, v, idx, tables=tables), 1)
+    ixs = torch.as_tensor(srcs, dtype=torch.long, device="cuda")
+
+    def expand(x):  # [b, Fk, h, l, dh] -> each target frame's slots: [b*f, h, S*l, dh]
+        return x[:, ixs].permute(0, 1, 3, 2, 4, 5).reshape(b * f, h, -1, dh).contiguous()
+
+    qh, ke, ve = q.reshape(b * f, h, l, dh), expand(k), expand(v)
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qh, ke, ve), reps)
+    case = dict(shape=[b, f, h, l, l, dh], indices=list(idx), dtype=str(dtype).split(".")[-1],
+                ctx=None, shard=dict(frames=nf, ranks=n, rank=rank, fk=fk, halo=list(halo)),
+                max_abs_err=err, err_over_tol=ratio, planted_err_over_tol=planted,
+                rows_bitwise_equal_unsharded=bool(torch.equal(got, whole)),
+                rows_max_abs_diff_unsharded=(got.float() - whole.float()).abs().max().item(),
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **_bound([b, f, h, l, l, dh], idx, 0, dtype, tables=tables))
+    print(f"[kernel] {json.dumps(case)}", flush=True)
+    return case
+
+
+def _vfa_tokens_shard_case(b, nf, n, rank, h, lq, l, dh, idx, dtype, lc, reps=3):
+    """K2's shard form (token-major, the context per q frame) against its
+    plain version: q of the rank's frames, k/v with the halo frames."""
+    import torch
+
+    from univst_torch.attention.ops import shard_kv_tables
+    from univst_torch.attention.video_flash import (
+        video_flash_attention_tokens, video_flash_attention_tokens_plain,
+    )
+
+    f = nf // n
+    halo, srcs, mult = shard_kv_tables(tuple(idx), nf, rank * f, f)
+    fk = f + len(halo)
+    gen = torch.Generator(device="cuda").manual_seed(lq * dh + rank)
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = r(b, f, lq, h, dh), r(b, fk, l, h, dh), r(b, fk, l, h, dh)
+    kw = dict(ctx_k=r(b, f, lc, h, dh), ctx_v=r(b, f, lc, h, dh), ctx_valid=lc,
+              tables=(srcs, mult))
+    got = video_flash_attention_tokens(q, k, v, idx, **kw)
+    _sync()
+    want = video_flash_attention_tokens_plain(q, k, v, idx, **kw)
+    _sync()
+    err = (got.float() - want.float()).abs().max().item()
+    ratio = _err_over_tol(got, want)
+    if not ratio <= 1.0:
+        raise AssertionError(f"video_flash_attention_tokens shard form {tuple(q.shape)} "
+                             f"Fk={fk}: kernel vs plain at {ratio:.3g}x the tolerance")
+    del want
+    ms = _time_ms(lambda: video_flash_attention_tokens(q, k, v, idx, **kw), reps)
+    plain_ms = _time_ms(lambda: video_flash_attention_tokens_plain(q, k, v, idx, **kw), 1)
+    case = dict(shape=[b, f, h, lq, l, dh], indices=list(idx), dtype=str(dtype).split(".")[-1],
+                ctx=[lc, lc], shard=dict(frames=nf, ranks=n, rank=rank, fk=fk, halo=list(halo)),
+                max_abs_err=err, err_over_tol=ratio, planted_err_over_tol=None, ms=ms,
+                plain_ms=plain_ms, library_ms=None,
+                **_bound([b, f, h, lq, l, dh], idx, lc, dtype, tables=(srcs, mult)))
+    print(f"[kernel] {json.dumps(case)}", flush=True)
+    return case
+
+
+def _build_mesh_pipe(backbone: str, dtype_name: str, nf: int):
+    import torch
+
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    if backbone == "ad":
+        return _build_ad(dtype)[0]
+    from univst_torch.pipelines.sd import SDVideoPipeline
+
+    return SDVideoPipeline.build(variant="sd15", num_frames=nf, dtype=dtype, capture_up_block=2,
+                                 seed=0, device="cuda")
+
+
+def _mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe: dict):
+    """One rank of a ``[mesh]`` job: a gloo process group over a file store,
+    every rank on ``cuda:0``; the pipeline built as the one-process phases
+    build it, replicated from rank 0 (``with_mesh``), then the workflow on
+    the rank's frames. Each rank writes its counts and times; rank 0 also
+    the gathered outputs. Nothing is caught: a failure ends the job."""
+    sys.path.insert(0, REPO)
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", rank=rank,
+                            world_size=n,
+                            timeout=datetime.timedelta(seconds=MESH_PG_TIMEOUT_S))
+    from univst_torch.distributed.mesh import make_mesh
+
+    backbone, dtype_name, px, nf, _ = MESH_JOBS[job]
+    mesh = make_mesh(device="cuda:0")
+    t0 = time.time()
+    pipe = _build_mesh_pipe(backbone, dtype_name, nf)
+    _sync()
+    build_s = time.time() - t0
+    t0 = time.time()
+    pipe = pipe.with_mesh(mesh)
+    _sync()
+    replicate_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    counters = _zero_counters()
+    w = _workflow(pipe, backbone, steps, nf, px, f"mesh {job} r{rank}")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    by_op = {}
+    for c in w["census"].values():
+        for key, v in c.items():
+            s = by_op.setdefault(key.split(":")[0], dict(count=0, mb=0.0, host_ms=0.0))
+            for k in s:
+                s[k] += v[k]
+    stats = dict(job=job, rank=rank, ranks=n, steps=steps, build_s=build_s,
+                 replicate_s=replicate_s, stage_s=w["stage"], main_path_s=w["main_s"],
+                 census_by_stage=w["census"],
+                 census_per_inversion_forward={
+                     key: dict(count=c["count"] / steps, mb=c["mb"] / steps)
+                     for key, c in w["census"]["content_inversion"].items()
+                     if not key.endswith(":outputs")},
+                 collectives_by_op=by_op,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    print(f"[mesh] {json.dumps(stats)}", flush=True)
+    torch.save(stats, os.path.join(out_dir, f"stats{rank}.pt"))
+    forward = _forward_pair(pipe, probe)  # on the reference's inputs
+    if rank == 0:
+        result = {k: w[k].cpu() for k in ("out", "video", "masks", "traj", "rec")}
+        torch.save(dict(result, forward=forward), os.path.join(out_dir, "result.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _run_mesh_job(job: str, steps: int, probe: dict):
+    """Spawn the job's ranks (never fork after CUDA init) and wait; a rank
+    that raises ends the script. Returns rank 0's outputs and every rank's
+    stats."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    n = MESH_JOBS[job][4]
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "results")) as out_dir:
+        t0 = time.time()
+        mp.spawn(_mesh_rank, args=(n, out_dir, job, steps, probe), nprocs=n, join=True)
+        wall = time.time() - t0
+        stats = [torch.load(os.path.join(out_dir, f"stats{r}.pt"), weights_only=False)
+                 for r in range(n)]
+        result = torch.load(os.path.join(out_dir, "result.pt"), weights_only=False)
+    print(f"[mesh] {job}: {n} ranks in {wall:.1f}s", flush=True)
+    return result, stats
+
+
+def _psnr_frames(got, want):
+    """PSNR of each uint8 frame against the reference's, in dB."""
+    import torch
+
+    mse = (got.double() - want.double()).pow(2).flatten(1).mean(1)
+    return [float("inf") if m == 0 else 10 * torch.log10(255.0**2 / m).item() for m in mse]
+
+
+def _rel_rms(got, want) -> float:
+    got, want = got.double(), want.double()
+    return ((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item()
+
+
+def _err_over_tol32(got, want) -> float:
+    """``max |got - want| / (2e-5 + 2e-4 |want|)``: the fp32 bar of the JAX
+    package's sharded-against-single-device test (tests/test_distributed.py:
+    89-125), passing at <= 1."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs() / (2e-5 + 2e-4 * want.abs())).max().item()
+
+
+def _probe_inputs(pipe, w: dict, steps: int) -> dict:
+    """The inputs of ``_forward_pair`` from a workflow's own tensors at its
+    middle step: the content latent, the style latents of all frames, the
+    prompt, the step and its timestep (on the host)."""
+    i = steps // 2
+    return dict(i=i, t=int(pipe.schedule.timesteps(steps)[i]), z=w["traj"][i].cpu(),
+                sty=w["straj"][i].expand(pipe.num_frames, -1, -1, -1).cpu(),
+                ctx=w["ctx"].cpu())
+
+
+def _forward_pair(pipe, probe: dict) -> dict:
+    """Two UNet forwards on the same inputs (``_probe_inputs``): the
+    inversion's (B = 1, the model-default frame set) and the injected
+    2-branch stylization forward, the style branch's K/V captured by a
+    forward of the style latents; in the pipeline's type and, for a bf16
+    pipeline, once more with the UNet in fp32 (``*_fp32``; the UNet is
+    back in bf16 after, bit for bit). Under a mesh each runs on the rank's
+    frames; the eps come back gathered, on the host."""
+    import torch
+
+    from univst_torch.distributed.mesh import gather_frames
+    from univst_torch.models.layers import StyleCtx
+    from univst_torch.models.unet_sd import extract_pnp_kv
+
+    i, t, nf = probe["i"], probe["t"], pipe.num_frames
+    dev = pipe.device
+    ctx = probe["ctx"].to(dev)
+    z, sty = (pipe._shard(probe[k].to(dev)) for k in ("z", "sty"))
+    shard = pipe._frame_shard()
+
+    def whole(x):
+        x = x.reshape((-1, z.shape[0]) + x.shape[1:])
+        return (x if shard is None else gather_frames(x, pipe.mesh, axis=1)).float().cpu()
+
+    def pair(p):
+        with torch.inference_mode():
+            eps1 = p._denoise_fn(ctx, p.base_frame_indices, None)(z, t, i)[0]
+            cap = StyleCtx(step_idx=i, cfg=p.style_shift_cfg, capture=True)
+            p.unet(sty.to(p.dtype), t, ctx, p._stylize_vctx(nf), cap)
+            two = p._denoise_fn(torch.cat([ctx, ctx]), p.pnp_frame_indices, p.style_shift_cfg)
+            eps2 = two(torch.cat([z, z]), t, i, style_kv=extract_pnp_kv(cap.captured))[0]
+        _sync()
+        return whole(eps1), whole(eps2)
+
+    out = dict(zip(("inversion", "injected"), pair(pipe)))
+    if pipe.dtype != torch.float32:
+        pipe.unet.float()
+        out.update(zip(("inversion_fp32", "injected_fp32"),
+                       pair(dataclasses.replace(pipe, dtype=torch.float32))))
+        pipe.unet.to(pipe.dtype)
+    return out
+
+
+def _one_process(backbone: str, dtype_name: str, px: int, nf: int, steps: int, tag: str):
+    """A ``[mesh]`` job's one-process reference on the card, with its
+    forward pair."""
+    pipe = _build_mesh_pipe(backbone, dtype_name, nf)
+    w = _workflow(pipe, backbone, steps, nf, px, tag)
+    out = {k: w[k].cpu() for k in ("out", "video", "masks", "traj", "rec")}
+    out["probe"] = _probe_inputs(pipe, w, steps)
+    out["forward"] = _forward_pair(pipe, out["probe"])
+    return out
+
+
+def _compare(result, ref, fp32: bool) -> dict:
+    """The workflow outputs of one run against another: the bars of the
+    sharded runs (bf16: final latents within 1e-2 relative RMS, every frame
+    >= 40 dB, masks equal on >= 99.5% of the pixels; fp32: trajectory,
+    final latents and reconstruction within ``_err_over_tol32`` <= 1,
+    masks equal, frames within one level) and what they are made of."""
+    import torch
+
+    psnr = _psnr_frames(result["video"], ref["video"])
+    out = dict(latents_rel_rms=_rel_rms(result["out"], ref["out"]),
+               inversion_rel_rms=_rel_rms(result["traj"][-1], ref["traj"][-1]),
+               reconstruction_rel_rms=_rel_rms(result["rec"], ref["rec"]),
+               frame_psnr_db_min=min(psnr),
+               masks_equal=(result["masks"] == ref["masks"]).float().mean().item())
+    if fp32:
+        out["err_over_tol32"] = {k: _err_over_tol32(result[k], ref[k])
+                                 for k in ("traj", "out", "rec")}
+        out["traj_rel_rms_by_step"] = [_rel_rms(g, w) for g, w in zip(result["traj"],
+                                                                      ref["traj"])]
+        out["frames_max_level_diff"] = (result["video"].int()
+                                        - ref["video"].int()).abs().max().item()
+        out["bars_met"] = bool(max(out["err_over_tol32"].values()) <= 1.0
+                               and out["frames_max_level_diff"] <= 1
+                               and torch.equal(result["masks"], ref["masks"]))
+    else:
+        out["frame_psnr_db"] = psnr
+        out["bars_met"] = bool(out["latents_rel_rms"] <= 1e-2 and min(psnr) >= 40.0
+                               and out["masks_equal"] >= 0.995)
+    return out
+
+
+def _check_mesh(job: str, result, ref) -> dict:
+    """A sharded job against its one-process reference.
+
+    Gated (a sharding fault fails here): the two forwards at the middle
+    step (``_forward_pair``, the reference's inputs, no DDIM loop to
+    amplify a rounding difference) in fp32 within ``_err_over_tol32`` <= 1
+    and, for a bf16 job, in bf16: the sharded forward's relative RMS
+    distance from the reference's fp32 forward at most ``MESH_BF16_RATIO``
+    times the reference's own bf16 forward's (a wrong halo frame or
+    exchange is far outside bf16 rounding); the workflow's outputs finite,
+    and its masks equal on >= 99.5% of the pixels. Reported: the bf16
+    forwards' relative RMS against the reference's bf16 forwards, and the
+    workflow bars of ``_compare`` (their misses: ROADMAP queue 3)."""
+    import torch
+
+    fp32 = MESH_JOBS[job][1] == "fp32"
+    fwd = {}
+    got, want = result["forward"], ref["forward"]
+    for name in ("inversion", "injected"):
+        key = name if fp32 else name + "_fp32"
+        fwd[name] = dict(err_over_tol32=_err_over_tol32(got[key], want[key]))
+        if not fp32:
+            err, ref_err = _rel_rms(got[name], want[key]), _rel_rms(want[name], want[key])
+            fwd[name].update(bf16_rel_rms=_rel_rms(got[name], want[name]),
+                             bf16_vs_fp32_rel_rms=err, ref_bf16_vs_fp32_rel_rms=ref_err,
+                             bf16_ratio=err / ref_err)
+    wf = _compare(result, ref, fp32)
+    out = dict(job=job, forward=fwd, workflow=wf)
+    print(f"[mesh] {json.dumps(out)}", flush=True)
+    if not wf["bars_met"]:
+        print(f"[mesh] MISS {job}: the workflow bars are not met (ROADMAP queue 3)",
+              flush=True)
+    for k in ("out", "traj", "rec"):
+        if not torch.isfinite(result[k].float()).all():
+            raise AssertionError(f"[mesh] {job}: {k} has non-finite values")
+    ok_fwd = all(v["err_over_tol32"] <= 1.0 and v.get("bf16_ratio", 0.0) <= MESH_BF16_RATIO
+                 for v in fwd.values())
+    if not (ok_fwd and wf["masks_equal"] >= 0.995):
+        raise AssertionError(f"[mesh] {job} misses its one-process reference: {out}")
+    return out
+
+
+def phase_mesh(main_ref, steps: int):
+    """Frame parallelism on the one card: K1's shard form (three shapes, a
+    planted slot-table fault) and K2's, then the SD-1.5 workflow in bf16 at
+    full width over 2 ranks against ``[main]``, in fp32 at 256 px over 2 and
+    4 ranks against a one-process fp32 run, and AnimateDiff-v2 in bf16 at
+    full width over 2 ranks against a one-process run at the same steps.
+    The ranks time-slice the card over gloo (which stages every collective
+    through host memory): the times are not a speed measurement."""
+    import torch
+
+    bf = torch.bfloat16
+    k1 = [
+        _vfa_shard_case(2, 16, 2, 1, 8, 4096, 40, (-1, 0, "first"), bf, plant=True),
+        _vfa_shard_case(2, 16, 2, 1, 8, 4096, 40, (-1, "first"), bf),
+        _vfa_shard_case(2, 16, 4, 2, 8, 4096, 40, (-1, 0, "first"), bf),
+        _vfa_shard_case(2, 16, 2, 1, 8, 1024, 80, (-1, 0, "first"), bf),
+    ]
+    k2 = [_vfa_tokens_shard_case(1, 16, 2, 1, 24, 4429, 4096, 64, ("first", -1, 0), bf, 333)]
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(REPO, "results"), exist_ok=True)
+
+    launches = {"video_flash_attention": 0, "video_flash_attention_tokens": 0}
+
+    def run(job, job_steps, ref):
+        result, stats = _run_mesh_job(job, job_steps, ref["probe"])
+        backbone, _, px, nf, n = MESH_JOBS[job]
+        forwards = 3 * job_steps  # inversion, reconstruction, stylization: one a step
+        per_forward = 0 if backbone == "ad" else (10 if px == 512 else 5)
+        for st in stats:
+            _check_launches(st["launches"], {"video_flash_attention": per_forward * forwards,
+                                             "video_flash_attention_tokens": 0})
+            for name in launches:
+                launches[name] += st["launches"][name]
+        return _check_mesh(job, result, ref)
+
+    run("sd_bf16_2", steps, main_ref)
+    fp32_steps = 6
+    ref = _one_process("sd", "fp32", 256, 8, fp32_steps, "mesh sd_fp32_1")
+    torch.cuda.empty_cache()
+    run("sd_fp32_2", fp32_steps, ref)
+    run("sd_fp32_4", fp32_steps, ref)
+    ref = _one_process("ad", "bf16", 512, 16, MESH_AD_STEPS, "mesh ad_bf16_1")
+    torch.cuda.empty_cache()
+    run("ad_bf16_2", MESH_AD_STEPS, ref)
+    return launches, k1, k2
+
+
 def _entry(name, replaces, launches, cases, main_case):
     return dict(name=name, route="cuda", source=SOURCE, replaces=replaces, launches=launches,
                 max_abs_err=max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16"),
@@ -1223,7 +1671,7 @@ def main(argv=None) -> int:
     smi = phase_device()
     phase_build()
     cases, tokens = phase_kernels()
-    sd_launches, sd_state = phase_main_path(args.steps)
+    sd_launches, sd_state, main_ref = phase_main_path(args.steps)
     fallback_launches = phase_sd_fallback(sd_state, args.steps)
     phase_sd_linear_betas(sd_state, args.steps)
     phase_lk_shift()
@@ -1244,17 +1692,19 @@ def main(argv=None) -> int:
     del sd35m_state
     torch.cuda.empty_cache()
     sd3_launches["sd35l"], _ = phase_sd3("sd35l", args.sd35l_steps)
+    torch.cuda.empty_cache()
+    mesh_launches, shard_cases, shard_tokens = phase_mesh(main_ref, args.steps)
 
     k1_paths = {"sd": sd_launches, "sd_fallback": fallback_launches, "smooth": smooth_launches,
-                "profile": profile_launches}
+                "profile": profile_launches, "mesh": mesh_launches}
     k1_paths = {k: v["video_flash_attention"] for k, v in k1_paths.items()}
-    k2_paths = dict(sd3_launches, profile=profile_launches)
+    k2_paths = dict(sd3_launches, profile=profile_launches, mesh=mesh_launches)
     k2_paths = {k: v["video_flash_attention_tokens"] for k, v in k2_paths.items()}
     entries = [
-        dict(_entry("video_flash_attention", TPU_KERNEL, sum(k1_paths.values()), cases, cases[0]),
-             launches_by_path=k1_paths),
+        dict(_entry("video_flash_attention", TPU_KERNEL, sum(k1_paths.values()),
+                    cases + shard_cases, cases[0]), launches_by_path=k1_paths),
         dict(_entry("video_flash_attention_tokens", TPU_KERNEL_FOLDED, sum(k2_paths.values()),
-                    tokens, tokens[0]), launches_by_path=k2_paths),
+                    tokens + shard_tokens, tokens[0]), launches_by_path=k2_paths),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -112,3 +112,17 @@ def test_style_transfer_config_matches_jax():
     want = dataclasses.asdict(jconfig.StyleTransferConfig())
     assert dataclasses.asdict(config.StyleTransferConfig()) == want
     assert want["smoother"] is None and want["smoother_steps"] == (20, 25)
+
+
+def test_save_video_writes_png_frames_without_imageio(tmp_path, monkeypatch):
+    """Where imageio is not installed, the video becomes its ``*_frames/``
+    PNG directory (as where imageio has no ffmpeg backend)."""
+    import sys
+
+    from univst_torch.utils.io import save_video
+
+    monkeypatch.setitem(sys.modules, "imageio", None)  # import raises ImportError
+    frames = np.random.default_rng(0).uniform(0, 1, (3, 8, 8, 3)).astype(np.float32)
+    save_video(frames, str(tmp_path / "out" / "video.mp4"))
+    assert sorted(p.name for p in (tmp_path / "out" / "video_frames").iterdir()) == [
+        "00000.png", "00001.png", "00002.png"]

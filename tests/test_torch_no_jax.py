@@ -41,7 +41,9 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "univst_torch.pipelines.sd" in mods and len(mods) > 20
     assert {"univst_torch.utils.profiling", "univst_torch.utils.flops",
-            "univst_torch.models.lora", "univst_torch.models.sparse_controlnet"} <= set(mods)
+            "univst_torch.models.lora", "univst_torch.models.sparse_controlnet",
+            "univst_torch.distributed.mesh", "univst_torch.distributed.comm",
+            "univst_torch.distributed.census"} <= set(mods)
     code = ("import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

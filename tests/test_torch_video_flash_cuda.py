@@ -90,3 +90,53 @@ def test_video_flash_cuda_kernel_growing_logits(ramp):
         scale = torch.where(torch.arange(l, device="cuda") < 128, 0.1, 100.0)
     q, k, v = (x.to(torch.bfloat16) for x in (q, k * scale[:, None], v))
     _assert_matches_plain(q, k, v, ("first", -1, 0))
+
+
+# The shard form: q holds a rank's F frames, k/v its Fk = F + halo frames
+# (its own, then the halo frames its index set reads on other ranks), the
+# slot tables explicit (``ops.shard_kv_tables``).
+SHARDS = [  # dtype, b, (global F, ranks, rank), h, l, dh, indices
+    (torch.bfloat16, 2, (16, 2, 1), 2, 256, 40, (-1, 0, "first")),
+    (torch.bfloat16, 2, (16, 4, 2), 2, 256, 40, (-1, "first")),
+    (torch.bfloat16, 1, (16, 2, 1), 2, 200, 80, (-1, 0, "first")),
+    (torch.float32, 1, (8, 2, 1), 2, 128, 64, (-1, 0, "first")),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,shard,h,l,dh,indices", SHARDS)
+def test_video_flash_cuda_shard_form_matches_plain(dtype, b, shard, h, l, dh, indices):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    from univst_torch.attention.ops import shard_kv_tables
+
+    nf, n, rank = shard
+    f = nf // n
+    halo, srcs, mult = shard_kv_tables(indices, nf, rank * f, f)
+    gen = torch.Generator(device="cuda").manual_seed(l + dh + rank)
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(dtype)
+
+    fk = f + len(halo)
+    q, k, v = r(b, f, h, l, dh), r(b, fk, h, l, dh), r(b, fk, h, l, dh)
+    _assert_matches_plain(q, k, v, indices, tables=(srcs, mult))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_video_flash_cuda_default_call_is_the_explicit_table_call(dtype):
+    """Fk = F with the index set's own tables is the one-device call, bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    from univst_torch.attention.video_flash import slot_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(2, 6, 2, 256, 40, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    idx = (-1, 0, "first")
+    a = video_flash_attention(q, k, v, idx)
+    b = video_flash_attention(q, k, v, idx, tables=slot_tables(idx, 6))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

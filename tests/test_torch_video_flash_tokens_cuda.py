@@ -71,3 +71,39 @@ def test_video_flash_tokens_cuda_kernel_matches_plain(dtype, b, f, h, lq, l, dh,
     else:
         atol, rtol = 0.02 * want.pow(2).mean().sqrt().item(), 2.0**-6
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, ctx", [(torch.bfloat16, (90, 77)), (torch.float32, None)])
+def test_video_flash_tokens_cuda_shard_form(dtype, ctx):
+    """The shard form (k/v of Fk = F + halo frames, explicit slot tables; the
+    context stays q's frames') against its plain version, and the default
+    call bit for bit the explicit-table call with Fk = F."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    from univst_torch.attention.ops import shard_kv_tables
+    from univst_torch.attention.video_flash import slot_tables
+
+    idx, (b, f, h, lq, l, dh) = ("first", -1, 0), (1, 4, 3, 300, 256, 64)
+    halo, srcs, mult = shard_kv_tables(idx, 8, 4, f)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(dtype)
+
+    fk = f + len(halo)
+    q, k, v = r(b, f, lq, h, dh), r(b, fk, l, h, dh), r(b, fk, l, h, dh)
+    kw = dict(ctx_k=r(b, f, ctx[0], h, dh), ctx_v=r(b, f, ctx[0], h, dh),
+              ctx_valid=ctx[1]) if ctx else {}
+    got = video_flash_attention_tokens(q, k, v, idx, tables=(srcs, mult), **kw)
+    want = video_flash_attention_tokens_plain(q, k, v, idx, tables=(srcs, mult), **kw).float()
+    if dtype == torch.float32:
+        atol, rtol = 1e-5, 1e-5
+    else:
+        atol, rtol = 0.02 * want.pow(2).mean().sqrt().item(), 2.0**-6
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+    a = video_flash_attention_tokens(q, k[:, :f].contiguous(), v[:, :f].contiguous(), idx, **kw)
+    e = video_flash_attention_tokens(q, k[:, :f].contiguous(), v[:, :f].contiguous(), idx,
+                                     tables=slot_tables(idx, f), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, e)

@@ -43,3 +43,66 @@ def test_ctx_term_counts_valid_rows_only():
 def test_bytes_follow_the_element_size(itemsize):
     w = work((1, 4, 2, 300, 256, 40), ("first", -1, 0), ctx_valid=77, itemsize=itemsize)
     assert w.bytes == itemsize * 2 * 40 * (2 * 4 * 300 + 2 * 4 * 256 + 2 * 4 * 77)
+
+
+def test_shard_tables_work_counts_the_rank_and_its_halo():
+    # rank 1 of 2 at F=16, (-1, 0, 'first'): frames 8..15 each keep 3 slots
+    # (no duplicates away from frame 0): 24 kept slots; it reads its own 8
+    # frames' K/V and the halo frames 0 and 7: 10 frames
+    from univst_torch.attention.ops import shard_kv_tables
+
+    b, h, lq, l, dh = 2, 8, 4096, 4096, 40
+    halo, srcs, mult = shard_kv_tables((-1, 0, "first"), 16, 8, 8)
+    w = work((b, 8, h, lq, l, dh), (-1, 0, "first"), tables=(srcs, mult))
+    assert w.exps == b * h * lq * l * 24
+    assert w.bytes == 2 * (2 * b * 8 * h * lq * dh + 2 * b * 10 * h * l * dh)
+    # rank 0 holds frame 0 (one kept slot of weight 3) and needs no halo
+    halo0, srcs0, mult0 = shard_kv_tables((-1, 0, "first"), 16, 0, 8)
+    w0 = work((b, 8, h, lq, l, dh), (-1, 0, "first"), tables=(srcs0, mult0))
+    assert halo0 == () and w0.exps == b * h * lq * l * (1 + 2 + 6 * 3)
+    # the one-device call is the explicit-table call with Fk = F
+    assert work((b, 16, h, lq, l, dh), (-1, 0, "first")) == work(
+        (b, 16, h, lq, l, dh), (-1, 0, "first"), tables=slot_tables((-1, 0, "first"), 16))
+
+
+@pytest.mark.parametrize("indices", [(-1, 0, "first"), (-1, "first"), ("first", -1, 0)])
+def test_plain_version_with_explicit_tables_at_fk_equal_f_is_the_default(indices):
+    """On the CPU the wrappers run their plain versions: the explicit-table
+    call with the index set's own tables equals the default call exactly,
+    in both layouts, with and without context."""
+    import torch
+
+    from univst_torch.attention.video_flash import (
+        decode_tables, encode_tables, video_flash_attention, video_flash_attention_tokens,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 4, 2, 40, 16, generator=gen) for _ in range(3))
+    ck, cv = (torch.randn(2, 4, 2, 9, 16, generator=gen) for _ in range(2))
+    tables = slot_tables(indices, 4)
+    assert all((a == b).all() for a, b in zip(decode_tables(encode_tables(*tables), 4), tables))
+    for kw in ({}, dict(ctx_k=ck, ctx_v=cv, ctx_valid=7)):
+        assert torch.equal(video_flash_attention(q, k, v, indices, **kw),
+                           video_flash_attention(q, k, v, indices, tables=tables, **kw))
+        tm = {key: (x.transpose(2, 3).contiguous() if torch.is_tensor(x) else x)
+              for key, x in kw.items()}
+        qt, kt, vt = (x.transpose(2, 3).contiguous() for x in (q, k, v))
+        assert torch.equal(video_flash_attention_tokens(qt, kt, vt, indices, **tm),
+                           video_flash_attention_tokens(qt, kt, vt, indices, tables=tables, **tm))
+
+
+def test_explicit_tables_are_checked():
+    import torch
+
+    from univst_torch.attention.video_flash import video_flash_attention
+
+    q = torch.zeros(1, 2, 1, 8, 8)
+    k = torch.zeros(1, 3, 1, 8, 8)
+    srcs, mult = slot_tables((-1, "first"), 2)
+    with pytest.raises(ValueError, match="disagree"):
+        video_flash_attention(q, k, k, (-1, "first"))  # Fk != F needs tables
+    with pytest.raises(ValueError, match="outside"):
+        video_flash_attention(q, k, k, (-1, "first"), tables=(srcs + 3, mult))
+    with pytest.raises(ValueError, match="slot tables"):
+        video_flash_attention(q, k, k, (-1, "first"), tables=(srcs[:1], mult[:1]))
+    assert video_flash_attention(q, k, k, (-1, "first"), tables=(srcs + 1, mult)).shape == q.shape

@@ -14,6 +14,7 @@ Layouts (as in the JAX package):
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,15 +53,73 @@ def resolve_frame_indices(
     return tuple(out)
 
 
-def cross_frame_kv(x: torch.Tensor, num_frames: int, indices: Sequence[FrameIndex]):
+@functools.lru_cache(maxsize=256)
+def shard_kv_tables(indices: Tuple[FrameIndex, ...], num_frames: int, offset: int, local: int):
+    """The K/V tables of a rank that holds global frames ``[offset, offset +
+    local)`` of a ``num_frames`` clip.
+
+    Returns ``(halo, srcs, mult)``: ``halo`` the sorted global frames, outside
+    the shard, that its frames read (what ``comm.frame_halo`` fetches);
+    ``srcs`` int32 ``[local, S]``, each slot's source in the rank's
+    extended K/V ``[own frames | halo frames]`` (``Fk = local + len(halo)``
+    frames); ``mult`` int32 ``[local, S]``, each slot's multiplicity from the
+    global sources (the first occurrence of a source keeps the count of its
+    duplicates, later ones 0), so the duplicate elision of frame 0, where
+    ``-1``, ``0`` and ``'first'`` name one frame, holds on every rank.
+    """
+    glob = np.stack(resolve_frame_indices(indices, num_frames), axis=1)[offset:offset + local]
+    halo = tuple(sorted({int(g) for g in glob.ravel()} - set(range(offset, offset + local))))
+    pos = {g: g - offset for g in range(offset, offset + local)}
+    pos.update({g: local + i for i, g in enumerate(halo)})
+    srcs = np.vectorize(pos.__getitem__, otypes=[np.int32])(glob)
+    mult = np.zeros_like(srcs)
+    for fi in range(glob.shape[0]):
+        for sj in range(glob.shape[1]):
+            if not (glob[fi, :sj] == glob[fi, sj]).any():
+                mult[fi, sj] = int((glob[fi] == glob[fi, sj]).sum())
+    return halo, srcs, mult
+
+
+def shard_halo_needs(indices: Tuple[FrameIndex, ...], num_frames: int, n_ranks: int):
+    """Per rank, the halo frames of :func:`shard_kv_tables` (what each rank
+    reads from the others)."""
+    local = num_frames // n_ranks
+    return tuple(shard_kv_tables(indices, num_frames, r * local, local)[0]
+                 for r in range(n_ranks))
+
+
+def extend_kv(x: torch.Tensor, shard, indices: Sequence[FrameIndex]):
+    """This rank's ``[B, f, ...]`` K/V (frames on axis 1) extended by the
+    halo frames the index set reads on other ranks: ``([B, Fk, ...],
+    srcs, mult)`` with the tables of :func:`shard_kv_tables`."""
+    from univst_torch.distributed.comm import frame_halo
+
+    indices = tuple(indices)
+    f = x.shape[1]
+    halo, srcs, mult = shard_kv_tables(indices, shard.num_frames, shard.offset, f)
+    needs = shard_halo_needs(indices, shard.num_frames, shard.mesh.n_data)
+    if any(needs):
+        x = torch.cat([x, frame_halo(x, shard, needs, site="kv_halo")], dim=1)
+    return x, srcs, mult
+
+
+def cross_frame_kv(x: torch.Tensor, num_frames: int, indices: Sequence[FrameIndex],
+                   shard=None):
     """Sparse-causal KV expansion: each frame's K/V tokens become the
     concatenation of the tokens of the frames selected by ``indices``.
 
     ``x`` is ``[B * F, L, D]``; returns ``[B * F, L * len(indices), D]``.
+    With ``shard`` (a ``comm.FrameShard``), ``x`` holds this rank's frames,
+    the index set is resolved in global frame numbers and the sources on
+    other ranks arrive through ``comm.frame_halo``.
     """
     if not indices:
         return x
     bf, l, d = x.shape
+    if shard is not None:
+        xe, srcs, _ = extend_kv(x.reshape(bf // num_frames, num_frames, l, d), shard, indices)
+        gathered = xe[:, torch.as_tensor(srcs, dtype=torch.long, device=x.device)]
+        return gathered.reshape(bf, l * len(indices), d)
     xv = x.reshape(bf // num_frames, num_frames, l, d)
     gathers = [xv[:, torch.as_tensor(m, dtype=torch.long, device=x.device)]
                for m in resolve_frame_indices(indices, num_frames)]
@@ -162,13 +221,21 @@ def apply_style_shift_sd3_injected(q, k, v, style_k, style_v, step_idx: int,
 
 
 def video_mha(q, k, v, num_heads: int, num_frames: int,
-              frame_indices: Sequence[FrameIndex], scale: Optional[float] = None):
+              frame_indices: Sequence[FrameIndex], scale: Optional[float] = None, shard=None):
     """Sparse-causal video attention on pre-head ``[B*F, L, D]`` tensors.
 
     The gate is the JAX package's (ops.py:335-341): the video flash kernel
     when an index set is given, L >= 1024 and L % 128 == 0 — the 64x64 and
     32x32 levels at 512 px — and the expanded-KV path otherwise. The kernel
     wrapper runs its plain version on CPU tensors.
+
+    With ``shard`` (a ``comm.FrameShard``) the tensors hold this rank's
+    ``F = shard.local`` frames: the index set is resolved in global frame
+    numbers, the K/V of the sources on other ranks arrive through one
+    ``comm.frame_halo``, and the kernel reads the extended K/V of ``Fk =
+    F + halo`` frames through explicit slot tables
+    (:func:`shard_kv_tables`); the expanded path gathers from the same
+    extended K/V.
     """
     bf, l, d = q.shape
     dh = d // num_heads
@@ -179,17 +246,31 @@ def video_mha(q, k, v, num_heads: int, num_frames: int,
         b = bf // f
 
         def split(x):
-            return x.reshape(b, f, l, num_heads, dh).permute(0, 1, 3, 2, 4).contiguous()
+            return x.reshape(b, x.shape[1], l, num_heads, dh).permute(0, 1, 3, 2, 4).contiguous()
 
+        tables = None
+        if shard is not None:
+            kv, srcs, mult = extend_kv(torch.cat([k, v]).reshape(2 * b, f, l, d), shard,
+                                       frame_indices)
+            k, v = kv.chunk(2)
+            tables = (srcs, mult)
+        else:
+            k, v = k.reshape(b, f, l, d), v.reshape(b, f, l, d)
         dt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
         out = video_flash_attention(
-            split(q).to(dt), split(k).to(dt), split(v).to(dt), tuple(frame_indices),
-            sm_scale=float(dh**-0.5 if scale is None else scale),
+            split(q.reshape(b, f, l, d)).to(dt), split(k).to(dt), split(v).to(dt),
+            tuple(frame_indices), sm_scale=float(dh**-0.5 if scale is None else scale),
+            tables=tables,
         ).to(q.dtype)
         return out.permute(0, 1, 3, 2, 4).reshape(bf, l, d)
     if frame_indices:
-        k = cross_frame_kv(k, f, frame_indices)
-        v = cross_frame_kv(v, f, frame_indices)
+        if shard is not None:
+            kv = cross_frame_kv(torch.cat([k.reshape(-1, f, l, d), v.reshape(-1, f, l, d)])
+                                .reshape(-1, l, d), f, frame_indices, shard)
+            k, v = kv.chunk(2)
+        else:
+            k = cross_frame_kv(k, f, frame_indices)
+            v = cross_frame_kv(v, f, frame_indices)
     return mha(q, k, v, num_heads, scale)
 
 

@@ -80,7 +80,7 @@ class Work(NamedTuple):
 
 
 def work(shape: Sequence[int], frame_indices: Sequence, ctx_valid: int = 0,
-         itemsize: int = 2) -> Work:
+         itemsize: int = 2, tables=None) -> Work:
     """The work of one call, from shapes alone, for either layout.
 
     ``shape`` is ``(B, F, H, Lq, L, dh)``. Each query meets the keys of its
@@ -88,26 +88,52 @@ def work(shape: Sequence[int], frame_indices: Sequence, ctx_valid: int = 0,
     keys: 4 * dh FLOPs (Q K^T and P V) and one exponential per meeting. Bytes
     count q read and the output written once, the K/V of every frame that is
     some frame's source, and the valid context rows, each read once.
+    ``tables`` (``(srcs, mult)``, the explicit slot tables of a call on
+    extended K/V, e.g. a frame shard's) replaces the index set's own: the
+    frames read are then the distinct ``srcs``, halo frames included.
     """
     b, f, h, lq, l, dh = (int(x) for x in shape)
-    srcs, mult = slot_tables(frame_indices, f)
-    keys = l * int((mult > 0).sum()) + ctx_valid * f  # summed over target frames
+    srcs, mult = tables if tables is not None else slot_tables(frame_indices, f)
+    keys = l * int((np.asarray(mult) > 0).sum()) + ctx_valid * f  # summed over target frames
     exps = float(b * h * lq) * keys
     used = len(np.unique(srcs))  # source frames whose K/V is read
     nbytes = itemsize * b * h * dh * (2 * f * lq + 2 * used * l + 2 * f * ctx_valid)
     return Work(4.0 * dh * exps, exps, float(nbytes))
 
 
+def encode_tables(srcs, mult) -> str:
+    """Explicit slot tables as the custom ops take them: ``"srcs;mult"``,
+    each row-major and comma-separated."""
+    return ";".join(",".join(str(int(x)) for x in np.asarray(t).ravel()) for t in (srcs, mult))
+
+
+def decode_tables(tables: str, num_frames: int):
+    """``(srcs, mult)``, int32 ``[F, S]``, from :func:`encode_tables`."""
+    srcs, mult = (np.asarray([int(x) for x in t.split(",")], np.int32).reshape(num_frames, -1)
+                  for t in tables.split(";"))
+    return srcs, mult
+
+
+def _tables(frame_indices, num_frames: int, tables: Optional[str]):
+    """``(srcs, mult)`` of a call: its explicit tables, else the index set's."""
+    if tables is None:
+        return slot_tables(frame_indices, num_frames)
+    return decode_tables(tables, num_frames)
+
+
 @functools.lru_cache(maxsize=64)
-def _device_tables(frame_indices: tuple, num_frames: int, device: torch.device):
-    srcs, mult = slot_tables(frame_indices, num_frames)
+def _device_tables(frame_indices: tuple, num_frames: int, tables: Optional[str],
+                   device: torch.device):
+    srcs, mult = _tables(frame_indices, num_frames, tables)
     return (torch.from_numpy(srcs).to(device), torch.from_numpy(mult).to(device))
 
 
-def _check(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid, seq_axis: int = 3):
+def _check(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid, seq_axis: int = 3,
+           tables=None):
     """Shapes, types, devices, contiguity and scale the kernels take;
     ``seq_axis`` is 3 head-major (``[B, F, H, L, dh]``) and 2 token-major
-    (``[B, F, L, H, dh]``)."""
+    (``[B, F, L, H, dh]``). With explicit ``tables`` k/v may hold another
+    frame count ``Fk`` than q, and every source must lie in ``[0, Fk)``."""
     if not frame_indices:
         raise ValueError("video flash attention needs a non-empty frame index set")
     if sm_scale is not None and not sm_scale > 0:
@@ -117,12 +143,19 @@ def _check(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid, seq_axis: 
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     other = 5 - seq_axis  # the head axis: 2 head-major, 3 token-major
 
-    def same(a, b):  # every axis but the sequence axis
-        return a.shape[:2] == b.shape[:2] and a.shape[other] == b.shape[other] \
-            and a.shape[4] == b.shape[4]
+    def same(a, b, frames=True):  # every axis but the sequence axis
+        return a.shape[0] == b.shape[0] and (not frames or a.shape[1] == b.shape[1]) \
+            and a.shape[other] == b.shape[other] and a.shape[4] == b.shape[4]
 
-    if not same(q, k):
+    if not same(q, k, frames=tables is None):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if tables is not None:
+        srcs, mult = tables
+        want = (q.shape[1], len(frame_indices))
+        if srcs.shape != want or mult.shape != want:
+            raise ValueError(f"slot tables {srcs.shape}, {mult.shape}; want {want}")
+        if srcs.min() < 0 or srcs.max() >= k.shape[1]:
+            raise ValueError(f"slot sources outside the {k.shape[1]} K/V frames")
     dh = q.shape[4]
     if dh > 128 or dh % 8:
         raise ValueError(f"head_dim must be a multiple of 8 and <= 128, got {dh}")
@@ -144,13 +177,15 @@ def _check(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid, seq_axis: 
 
 
 def video_flash_attention_plain(q, k, v, frame_indices: Sequence, sm_scale: Optional[float] = None,
-                                ctx_k=None, ctx_v=None, ctx_valid: Optional[int] = None):
+                                ctx_k=None, ctx_v=None, ctx_valid: Optional[int] = None,
+                                tables=None):
     """Plain PyTorch version: gather each target frame's source-frame K/V,
     concatenate them (duplicates included, plus the valid context), and run
     an fp32 softmax. One (b, f) row at a time, so the logits stay
-    ``[H, Lq, S*L + Lc]``."""
+    ``[H, Lq, S*L + Lc]``. ``tables`` as for :func:`video_flash_attention`
+    (its ``srcs`` index k/v's frames)."""
     b, f, h, lq, dh = q.shape
-    srcs, _ = slot_tables(frame_indices, f)
+    srcs, _ = tables if tables is not None else slot_tables(frame_indices, f)
     scale = float(dh**-0.5 if sm_scale is None else sm_scale)
     out = torch.empty_like(q)
     for bi in range(b):
@@ -173,7 +208,7 @@ def _kernel_fn(symbol: str):
         from univst_torch._build import load_library
 
         fn = getattr(load_library(_KERNEL), symbol)
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
@@ -181,19 +216,20 @@ def _kernel_fn(symbol: str):
 
 
 def _launch(symbol: str, q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid,
-            h: int, lq: int, l: int, lc: int):
-    """Launch one kernel on q's current stream; ``out`` is q's layout."""
-    b, f, dh = q.shape[0], q.shape[1], q.shape[4]
+            h: int, lq: int, l: int, lc: int, tables: Optional[str] = None):
+    """Launch one kernel on q's current stream; ``out`` is q's layout. k/v
+    hold ``Fk = k.shape[1]`` frames (q's F unless ``tables`` is given)."""
+    b, f, dh, fk = q.shape[0], q.shape[1], q.shape[4], k.shape[1]
     scale = float(dh**-0.5 if sm_scale is None else sm_scale)
     fn = _kernel_fn(symbol)
-    srcs, mult = _device_tables(tuple(frame_indices), f, q.device)
+    srcs, mult = _device_tables(tuple(frame_indices), f, tables, q.device)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  ctx_k.data_ptr() if ctx_k is not None else None,
                  ctx_v.data_ptr() if ctx_v is not None else None,
                  out.data_ptr(), srcs.data_ptr(), mult.data_ptr(),
-                 b, f, h, lq, l, lc, ctx_valid or 0, dh, srcs.shape[1], scale,
+                 b, f, fk, h, lq, l, lc, ctx_valid or 0, dh, srcs.shape[1], scale,
                  int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
@@ -218,47 +254,58 @@ def _op_args(sm_scale, ctx_valid):
 def _video_flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               frame_indices: str, sm_scale: Optional[float],
                               ctx_k: Optional[torch.Tensor], ctx_v: Optional[torch.Tensor],
-                              ctx_valid: Optional[int]) -> torch.Tensor:
+                              ctx_valid: Optional[int],
+                              tables: Optional[str] = None) -> torch.Tensor:
     idx = _decode_indices(frame_indices)
     if q.device.type == "cpu":
-        return video_flash_attention_plain(q, k, v, idx, sm_scale, ctx_k, ctx_v, ctx_valid)
+        return video_flash_attention_plain(q, k, v, idx, sm_scale, ctx_k, ctx_v, ctx_valid,
+                                           None if tables is None
+                                           else decode_tables(tables, q.shape[1]))
     out = _launch("univst_video_flash_attention", q, k, v, idx, sm_scale, ctx_k,
                   ctx_v, ctx_valid, h=q.shape[2], lq=q.shape[3], l=k.shape[3],
-                  lc=ctx_k.shape[3] if ctx_k is not None else 0)
+                  lc=ctx_k.shape[3] if ctx_k is not None else 0, tables=tables)
     video_flash_attention.launches += 1
     return out
 
 
 @register_flop_formula(torch.ops.univst.video_flash_attention)
 def _video_flash_attention_flops(q, k, v, frame_indices, sm_scale=None, ctx_k=None, ctx_v=None,
-                                 ctx_valid=None, *args, out_shape=None, **kwargs) -> int:
+                                 ctx_valid=None, tables=None, *args, out_shape=None,
+                                 **kwargs) -> int:
     b, f, h, lq, dh = q
-    return int(work((b, f, h, lq, k[3], dh), _decode_indices(frame_indices),
-                    ctx_valid or 0).flops)
+    return int(work((b, f, h, lq, k[3], dh), _decode_indices(frame_indices), ctx_valid or 0,
+                    tables=None if tables is None else decode_tables(tables, f)).flops)
 
 
 def video_flash_attention(q, k, v, frame_indices: Sequence, sm_scale: Optional[float] = None,
-                          ctx_k=None, ctx_v=None, ctx_valid: Optional[int] = None):
+                          ctx_k=None, ctx_v=None, ctx_valid: Optional[int] = None, tables=None):
     """Attention where each frame's KV is the concatenation of the frames
     selected by ``frame_indices``, computed without expanding K/V.
 
     Args:
       q: ``[B, F, H, Lq, dh]`` (Lq may differ from L).
-      k, v: ``[B, F, H, L, dh]``.
+      k, v: ``[B, F, H, L, dh]``, or ``[B, Fk, H, L, dh]`` with ``tables``.
       frame_indices: sparse-causal index set, e.g. ``(-1, 'first')``.
       ctx_k, ctx_v: optional ``[B, F, H, Lc, dh]`` per-frame context K/V that
         every query of the frame also attends, limited to the first
         ``ctx_valid`` (default Lc) tokens.
+      tables: optional explicit slot tables ``(srcs, mult)``, int ``[F, S]``
+        (S = len(frame_indices)): slot s of target frame f reads k/v frame
+        ``srcs[f, s]`` with multiplicity ``mult[f, s]`` (0 skips it). A
+        frame shard's form (``ops.shard_kv_tables``): k/v hold the rank's
+        frames and the halo frames they read. Without it the tables are
+        the index set's own (:func:`slot_tables`) and ``Fk = F``.
     Returns ``[B, F, H, Lq, dh]`` in the input dtype (float32 or bfloat16).
     """
     if ctx_k is not None and ctx_valid is None:
         ctx_valid = ctx_k.shape[3]
-    _check(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid)
+    _check(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid, tables=tables)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"video_flash_attention runs on CPU or CUDA, not {q.device}")
     sm_scale, ctx_valid = _op_args(sm_scale, ctx_valid)
     return _video_flash_attention_op(q, k, v, _encode_indices(frame_indices), sm_scale, ctx_k,
-                                     ctx_v, ctx_valid)
+                                     ctx_v, ctx_valid,
+                                     None if tables is None else encode_tables(*tables))
 
 
 video_flash_attention.launches = 0
@@ -270,12 +317,13 @@ def _head_major(x):
 
 def video_flash_attention_tokens_plain(q, k, v, frame_indices: Sequence,
                                        sm_scale: Optional[float] = None, ctx_k=None,
-                                       ctx_v=None, ctx_valid: Optional[int] = None):
+                                       ctx_v=None, ctx_valid: Optional[int] = None,
+                                       tables=None):
     """Plain PyTorch version of :func:`video_flash_attention_tokens`: the
     head-major plain version on transposed views, transposed back."""
     out = video_flash_attention_plain(
         _head_major(q), _head_major(k), _head_major(v), frame_indices, sm_scale,
-        _head_major(ctx_k), _head_major(ctx_v), ctx_valid)
+        _head_major(ctx_k), _head_major(ctx_v), ctx_valid, tables)
     return out.transpose(2, 3).contiguous()
 
 
@@ -284,37 +332,40 @@ def _video_flash_attention_tokens_op(q: torch.Tensor, k: torch.Tensor, v: torch.
                                      frame_indices: str, sm_scale: Optional[float],
                                      ctx_k: Optional[torch.Tensor],
                                      ctx_v: Optional[torch.Tensor],
-                                     ctx_valid: Optional[int]) -> torch.Tensor:
+                                     ctx_valid: Optional[int],
+                                     tables: Optional[str] = None) -> torch.Tensor:
     idx = _decode_indices(frame_indices)
     if q.device.type == "cpu":
-        return video_flash_attention_tokens_plain(q, k, v, idx, sm_scale, ctx_k, ctx_v,
-                                                  ctx_valid)
+        return video_flash_attention_tokens_plain(
+            q, k, v, idx, sm_scale, ctx_k, ctx_v, ctx_valid,
+            None if tables is None else decode_tables(tables, q.shape[1]))
     out = _launch("univst_video_flash_attention_tokens", q, k, v, idx, sm_scale,
                   ctx_k, ctx_v, ctx_valid, h=q.shape[3], lq=q.shape[2], l=k.shape[2],
-                  lc=ctx_k.shape[2] if ctx_k is not None else 0)
+                  lc=ctx_k.shape[2] if ctx_k is not None else 0, tables=tables)
     video_flash_attention_tokens.launches += 1
     return out
 
 
 @register_flop_formula(torch.ops.univst.video_flash_attention_tokens)
 def _video_flash_attention_tokens_flops(q, k, v, frame_indices, sm_scale=None, ctx_k=None,
-                                        ctx_v=None, ctx_valid=None, *args, out_shape=None,
-                                        **kwargs) -> int:
+                                        ctx_v=None, ctx_valid=None, tables=None, *args,
+                                        out_shape=None, **kwargs) -> int:
     b, f, lq, h, dh = q
-    return int(work((b, f, h, lq, k[2], dh), _decode_indices(frame_indices),
-                    ctx_valid or 0).flops)
+    return int(work((b, f, h, lq, k[2], dh), _decode_indices(frame_indices), ctx_valid or 0,
+                    tables=None if tables is None else decode_tables(tables, f)).flops)
 
 
 def video_flash_attention_tokens(q, k, v, frame_indices: Sequence,
                                  sm_scale: Optional[float] = None, ctx_k=None, ctx_v=None,
-                                 ctx_valid: Optional[int] = None):
+                                 ctx_valid: Optional[int] = None, tables=None):
     """:func:`video_flash_attention` on token-major tensors, the layout of
     ``pallas_attention.py::video_flash_attention_folded``.
 
     Args:
       q: ``[B, F, Lq, H, dh]`` (Lq may differ from L and need not be a
         multiple of the kernel's 64-row tile).
-      k, v: ``[B, F, L, H, dh]``.
+      k, v: ``[B, F, L, H, dh]``, or ``[B, Fk, L, H, dh]`` with ``tables``
+        (as for :func:`video_flash_attention`).
       frame_indices: sparse-causal index set, e.g. ``('first', -1, 0)``.
       ctx_k, ctx_v: optional ``[B, F, Lc, H, dh]`` per-frame context K/V that
         every query of the frame also attends, limited to the first
@@ -323,12 +374,14 @@ def video_flash_attention_tokens(q, k, v, frame_indices: Sequence,
     """
     if ctx_k is not None and ctx_valid is None:
         ctx_valid = ctx_k.shape[2]
-    _check(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid, seq_axis=2)
+    _check(q, k, v, frame_indices, sm_scale, ctx_k, ctx_v, ctx_valid, seq_axis=2,
+           tables=tables)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"video_flash_attention_tokens runs on CPU or CUDA, not {q.device}")
     sm_scale, ctx_valid = _op_args(sm_scale, ctx_valid)
     return _video_flash_attention_tokens_op(q, k, v, _encode_indices(frame_indices), sm_scale,
-                                            ctx_k, ctx_v, ctx_valid)
+                                            ctx_k, ctx_v, ctx_valid,
+                                            None if tables is None else encode_tables(*tables))
 
 
 video_flash_attention_tokens.launches = 0

@@ -1,7 +1,10 @@
 """Shared CLI plumbing: device selection, dtype parsing, output trees.
 
 Flags and output trees match ``univst_tpu.cli`` (common.py:55,70). The
-device is CUDA unless ``--platform cpu`` asks for the CPU.
+device is CUDA unless ``--platform cpu`` asks for the CPU. ``--mesh
+data=N`` runs the SD and AnimateDiff stages frame-parallel over the N ranks
+``torchrun`` started (NCCL, one rank per card; gloo on the CPU); rank 0
+writes the output tree, the other ranks write nothing.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from typing import Optional
 import numpy as np
 
 NOT_PORTED = "is not ported to the PyTorch package yet (it runs in univst_tpu)"
+SD3_MESH_NOT_PORTED = ("--mesh with --backbone sd3 is not ported yet (SD3 frame parallelism "
+                       "and tensor parallelism: next slice)")
 
 
 def setup_device(platform: Optional[str] = None):
@@ -39,9 +44,10 @@ def parse_dtype(name: str):
     }[str(name)]
 
 
-def make_output_tree(output_path: str, backbone: str, name: str):
+def make_output_tree(output_path: str, backbone: str, name: str, create: bool = True):
     """{out}/{backbone}/{name}/{inversion,reconstruction,features}
-    (reference run_content_inversion_sd.py:60-66)."""
+    (reference run_content_inversion_sd.py:60-66); ``create=False`` names the
+    paths without making them (the ranks of a mesh that write nothing)."""
     base = os.path.join(output_path, backbone, name)
     paths = {
         "base": base,
@@ -49,7 +55,7 @@ def make_output_tree(output_path: str, backbone: str, name: str):
         "reconstruction": os.path.join(base, "reconstruction"),
         "features": os.path.join(base, "features"),
     }
-    for p in paths.values():
+    for p in paths.values() if create else ():
         os.makedirs(p, exist_ok=True)
     return paths
 
@@ -76,25 +82,62 @@ def load_feature_pt(path: str) -> np.ndarray:
 
 
 def check_backbone(args) -> None:
-    """The port runs the SD, AnimateDiff and SD3 backbones on one device;
-    ``--mesh`` raises."""
+    """The port runs the SD, AnimateDiff and SD3 backbones on one device,
+    and SD and AnimateDiff frame-parallel (``--mesh data=N``); ``--mesh``
+    with SD3, or with ``tensor=M > 1``, raises."""
     if getattr(args, "backbone", "sd") not in (None, "sd", "animatediff", "sd3"):
         raise SystemExit(f"--backbone {args.backbone} {NOT_PORTED}")
-    if getattr(args, "mesh", None):
-        raise SystemExit(f"--mesh {NOT_PORTED}")
+    spec = getattr(args, "mesh", None)
+    if spec:
+        from univst_torch.distributed.mesh import parse_mesh_axes
+
+        if getattr(args, "backbone", "sd") == "sd3":
+            raise SystemExit(SD3_MESH_NOT_PORTED)
+        try:
+            parse_mesh_axes(spec)
+        except ValueError as e:
+            raise SystemExit(f"--mesh {spec}: {e}") from e
+
+
+def setup_mesh(args):
+    """The ``--mesh`` flag's mesh over the ``torchrun`` ranks (None without
+    the flag); ``--platform cpu`` runs the ranks on the CPU over gloo."""
+    check_backbone(args)
+    spec = getattr(args, "mesh", None)
+    if not spec:
+        return None
+    from univst_torch.distributed.mesh import parse_mesh_spec
+
+    return parse_mesh_spec(spec, device="cpu" if args.platform == "cpu" else None)
+
+
+def is_writer(mesh) -> bool:
+    """Whether this process writes outputs: rank 0 of a mesh, or the only
+    process."""
+    return mesh is None or mesh.rank == 0
+
+
+def barrier(mesh) -> None:
+    """Wait for every rank (rank 0's files are then on disk)."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.group)
 
 
 def build_pipeline_from_args(args, capture_up_block=None, num_frames=None):
     """Construct the SD or AnimateDiff pipeline from the shared CLI flags
-    (``univst_tpu/cli/common.py:90-118``)."""
-    check_backbone(args)
+    (``univst_tpu/cli/common.py:90-118``), frame-parallel under ``--mesh``
+    (``apply_mesh_arg``, :125-129)."""
+    mesh = setup_mesh(args)
     kw = dict(
         pretrained_model_path=args.pretrained_model_path,
         num_frames=args.num_frames if num_frames is None else num_frames,
         dtype=parse_dtype(args.weight_dtype),
         capture_up_block=capture_up_block,
         seed=args.seed or 0,
-        device=setup_device(args.platform),
+        device=setup_device(args.platform) if mesh is None else mesh.device,
+        mesh=mesh,
     )
     if args.backbone == "animatediff":
         from univst_torch.pipelines.animatediff import build_animatediff
@@ -114,7 +157,8 @@ def build_pipeline_from_args(args, capture_up_block=None, num_frames=None):
 
 def add_mesh_flag(parser):
     parser.add_argument("--mesh", type=str, default=None,
-                        help=f"multi-device mesh; {NOT_PORTED}")
+                        help="frame-parallel mesh over the torchrun ranks, 'data=N' (or 'N'); "
+                             "SD and AnimateDiff only")
     return parser
 
 

@@ -4,7 +4,8 @@
 Inverts the content video with (optionally EasyInv) DDIM, writes the latent
 trajectory as ``ddim_latents_{i}.pt`` (reference layout), captures the
 up-block feature map for mask propagation, and writes a reconstruction
-video as the correctness oracle. Runs on CUDA unless ``--platform cpu``.
+video as the correctness oracle. Runs on CUDA unless ``--platform cpu``;
+frame-parallel under ``torchrun`` with ``--mesh data=N`` (rank 0 writes).
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import argparse
 import os
 
 from univst_torch.cli.common import (
-    add_mesh_flag, build_pipeline_from_args, generator_for, make_output_tree, save_feature_pt,
+    add_mesh_flag, build_pipeline_from_args, generator_for, is_writer, make_output_tree,
+    save_feature_pt,
 )
 from univst_torch.utils.io import load_video, save_video, seed_everything
 
@@ -26,7 +28,8 @@ def main(args):
 
     pipe = build_pipeline_from_args(args, capture_up_block=args.ft_indices)
     name = os.path.basename(os.path.normpath(args.content_path)).split(".")[0]
-    paths = make_output_tree(args.output_path, args.backbone, name)
+    writer = is_writer(pipe.mesh)
+    paths = make_output_tree(args.output_path, args.backbone, name, create=writer)
 
     frames = load_video(args.content_path, args.num_frames, (args.width, args.height))
     latents = pipe.encode_frames(frames, generator_for(pipe.device, args.seed or 0))
@@ -37,14 +40,16 @@ def main(args):
         latents, context, num_steps=args.time_steps, is_opt=args.is_opt,
         capture_timestep=args.ft_timesteps,
     )
-    save_trajectory(traj, paths["inversion"])
-    if feat is not None:
+    if writer:
+        save_trajectory(traj, paths["inversion"])
+    if feat is not None and writer:
         save_feature_pt(feat, paths["features"], args.ft_indices, args.ft_timesteps)
 
     print("reconstruction:")
     lat0 = pipe.reconstruct_latents(traj[-1], context, num_steps=args.time_steps)
     video = pipe.decode_latents(lat0).cpu().numpy()
-    save_video(video, os.path.join(paths["reconstruction"], "content_video.mp4"))
+    if writer:
+        save_video(video, os.path.join(paths["reconstruction"], "content_video.mp4"))
     print(f"done -> {paths['base']}")
 
 

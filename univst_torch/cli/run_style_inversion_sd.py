@@ -17,7 +17,8 @@ import os
 import numpy as np
 
 from univst_torch.cli.common import (
-    add_mesh_flag, build_pipeline_from_args, check_backbone, generator_for, make_output_tree,
+    add_mesh_flag, build_pipeline_from_args, check_backbone, generator_for, is_writer,
+    make_output_tree,
 )
 from univst_torch.utils.io import load_style_image, save_video, seed_everything
 
@@ -34,7 +35,8 @@ def main(args):
     n_inv = num_frames_out if args.backbone == "animatediff" else 1
     pipe = build_pipeline_from_args(args, num_frames=n_inv)
     name = os.path.basename(args.style_path).split(".")[0]
-    paths = make_output_tree(args.output_path, args.backbone, name)
+    writer = is_writer(pipe.mesh)
+    paths = make_output_tree(args.output_path, args.backbone, name, create=writer)
 
     frames = load_style_image(args.style_path, n_inv, (args.width, args.height))
     latents = pipe.encode_frames(frames, generator_for(pipe.device, args.seed or 0))
@@ -43,12 +45,14 @@ def main(args):
     print("inversion:")
     traj, _ = pipe.invert(latents, context, num_steps=args.time_steps, is_opt=args.is_opt)
     reps = num_frames_out // n_inv
-    save_trajectory(traj.repeat(1, reps, 1, 1, 1), paths["inversion"])
+    if writer:
+        save_trajectory(traj.repeat(1, reps, 1, 1, 1), paths["inversion"])
 
     print("reconstruction:")
     lat0 = pipe.reconstruct_latents(traj[-1], context, num_steps=args.time_steps)
     video = np.tile(pipe.decode_latents(lat0).cpu().numpy(), (reps, 1, 1, 1))
-    save_video(video, os.path.join(paths["reconstruction"], "style_video.mp4"), fps=8)
+    if writer:
+        save_video(video, os.path.join(paths["reconstruction"], "style_video.mp4"), fps=8)
     print(f"done -> {paths['base']}")
 
 

@@ -5,7 +5,8 @@ Loads both inversion trajectories, AdaIN-shifts the initial noise
 (pnp_utils.py latent_adain; AnimateDiff starts from the raw content noise),
 runs the stylization loop with optional localized masking, and writes
 per-frame PNGs to {out}/{backbone}/{content}_{style}/. Runs on CUDA unless
-``--platform cpu``."""
+``--platform cpu``; frame-parallel under ``torchrun`` with ``--mesh data=N``
+(rank 0 writes)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import argparse
 import os
 
 from univst_torch.cli.common import (
-    add_mesh_flag, build_pipeline_from_args, check_backbone, singleton_style_or_fallback,
+    add_mesh_flag, build_pipeline_from_args, check_backbone, is_writer,
+    singleton_style_or_fallback,
 )
 from univst_torch.utils.io import load_mask, save_frames, seed_everything
 
@@ -72,7 +74,8 @@ def main(args):
     content_name = os.path.normpath(args.content_inv_path).split(os.sep)[-2]
     style_name = os.path.normpath(args.style_inv_path).split(os.sep)[-2]
     out_dir = os.path.join(args.output_path, args.backbone, f"{content_name}_{style_name}")
-    save_frames(frames, out_dir)
+    if is_writer(pipe.mesh):
+        save_frames(frames, out_dir)
     print(f"done -> {out_dir}")
 
 

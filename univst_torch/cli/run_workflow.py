@@ -6,14 +6,20 @@ propagation, video style transfer — the reference's scripts/start_*.sh)
 in one Python process. Each stage reuses the stage CLI's own parser and
 ``main`` with the argv scripts/start_*.sh would pass, so flags and output
 layouts are those of the separate stage CLIs. Runs on CUDA unless
-``--platform cpu``; the SD, AnimateDiff and SD3 backbones are ported,
-``--mesh`` raises.
+``--platform cpu``; the SD, AnimateDiff and SD3 backbones are ported.
+``--mesh data=N`` runs the SD and AnimateDiff stages frame-parallel over
+the N ranks ``torchrun`` started (NCCL, one rank per card): every rank runs
+every stage, rank 0 alone writes the tree (and propagates the masks), and
+the ranks meet after each stage. ``--mesh`` with ``--backbone sd3`` or
+``tensor=M > 1`` raises.
 
 Usage:
   python -m univst_torch.cli.run_workflow --backbone sd \
       --content_path examples/contents/demo-fly \
       --style_path examples/styles/00033.png \
       --mask_path examples/masks/demo-fly.png [--output_root results]
+  torchrun --nproc_per_node 4 -m univst_torch.cli.run_workflow --backbone sd \
+      --mesh data=4 ...
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import importlib
 import os
 import time
 
-from univst_torch.cli.common import NOT_PORTED
+from univst_torch.cli.common import barrier, is_writer, setup_mesh
 
 _STAGE_MODULES = {
     "sd": ("run_content_inversion_sd", "run_style_inversion_sd",
@@ -53,8 +59,7 @@ def _argv_for(parser: argparse.ArgumentParser, flags: dict) -> list[str]:
 
 
 def main(args):
-    if args.mesh:
-        raise SystemExit(f"--mesh {NOT_PORTED}")
+    mesh = setup_mesh(args)
     ci_mod, si_mod, st_mod = (importlib.import_module(f"univst_torch.cli.{m}")
                               for m in _STAGE_MODULES[args.backbone])
     mp_mod = importlib.import_module("univst_torch.cli.mask_propagation")
@@ -84,18 +89,22 @@ def main(args):
         "--motion_module_path": args.motion_module_path,
         "--dreambooth_path": args.dreambooth_path,
         "--lora_path": args.lora_path,
+        "--mesh": args.mesh,
     }
 
     t_all = time.time()
     ft_i, ft_t = args.ft_indices, args.ft_timesteps
 
-    def run(label, mod, flags):
+    def run(label, mod, flags, ranks_all: bool = True):
         parser = mod.build_parser()
         stage_args = parser.parse_args(_argv_for(parser, flags))
         t0 = time.time()
-        mod.main(stage_args)
+        if ranks_all or is_writer(mesh):
+            mod.main(stage_args)
         gc.collect()  # drop the stage pipeline before the next build
-        print(f"[workflow] {label}: {time.time() - t0:.1f}s")
+        barrier(mesh)  # the next stage reads what rank 0 wrote
+        if is_writer(mesh):
+            print(f"[workflow] {label}: {time.time() - t0:.1f}s", flush=True)
         return stage_args
 
     if "content" in stages:
@@ -129,7 +138,7 @@ def main(args):
             "--output_path": f"{root}/masks",
             "--num_frames": args.num_frames,
             "--platform": args.platform,
-        })
+        }, ranks_all=False)
     if "transfer" in stages:
         run("style transfer", st_mod, {
             **shared,
@@ -140,7 +149,9 @@ def main(args):
             "--smoother": args.smoother,
             "--flow": args.flow,
         })
-    print(f"[workflow] total ({args.backbone}, one process): {time.time() - t_all:.1f}s")
+    if is_writer(mesh):
+        where = "one process" if mesh is None else f"{mesh.n_data} ranks"
+        print(f"[workflow] total ({args.backbone}, {where}): {time.time() - t_all:.1f}s")
 
 
 def build_parser():
@@ -162,7 +173,8 @@ def build_parser():
     p.add_argument("--time_steps", type=int, default=None)
     p.add_argument("--weight_dtype", type=str, default=None)
     p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--mesh", type=str, default=None, help=f"multi-device mesh; {NOT_PORTED}")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="frame-parallel mesh over the torchrun ranks, 'data=N' (SD, AnimateDiff)")
     p.add_argument("--smoother", type=str, default=None)
     p.add_argument("--flow", type=str, default=None)
     p.add_argument("--motion_module_path", type=str, default=None)

@@ -75,16 +75,26 @@ def attention_adain_sd3_tm(cnt_feat: torch.Tensor, sty_feat: torch.Tensor) -> to
     return out.to(cnt_feat.dtype)
 
 
-def latent_adain(cnt_feat: torch.Tensor, sty_feat: torch.Tensor) -> torch.Tensor:
+def latent_adain(cnt_feat: torch.Tensor, sty_feat: torch.Tensor, shard=None) -> torch.Tensor:
     """Init/anchor latent AdaIN over ``[F, H, W, C]`` latents.
 
     Style stats per-(F, C) over (H, W) (reference dims [0, 3, 4] with B=1);
     normalization per-C over (F, H, W) — torch instance_norm on a 5D input
-    with N=1 (pnp_utils.py:128-139).
+    with N=1 (pnp_utils.py:128-139). Under a frame ``shard``
+    (``distributed.comm.FrameShard``) the latents hold this rank's frames:
+    the normalization's statistics combine every rank's
+    (``comm.sharded_var_mean``); the style statistics are per frame.
     """
     sty = sty_feat.float()
-    out = (_instance_norm(cnt_feat, (0, 1, 2)) * _std_unbiased(sty, (1, 2))
-           + sty.mean(dim=(1, 2), keepdim=True))
+    if shard is None:
+        cnt = _instance_norm(cnt_feat, (0, 1, 2))
+    else:
+        from univst_torch.distributed.comm import sharded_var_mean
+
+        x = cnt_feat.float()
+        var, mean = sharded_var_mean(x, (0, 1, 2), shard, site="latent_adain")
+        cnt = (x - mean) / torch.sqrt(var + _EPS)
+    out = cnt * _std_unbiased(sty, (1, 2)) + sty.mean(dim=(1, 2), keepdim=True)
     return out.to(cnt_feat.dtype)
 
 

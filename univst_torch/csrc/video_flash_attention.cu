@@ -10,7 +10,9 @@
 // One kernel body serves both: the layout is a template parameter that only
 // changes the addressing (the TMA tensor maps below, and the output stores).
 // Target frame f of row (b, f, h) attends the concatenation of the K/V of
-// its source frames srcs[f, s], read in place from the unexpanded tensors:
+// its source frames srcs[f, s], read in place from the unexpanded tensors
+// (k/v hold Fk frames a batch row: F, or, for a rank of a frame-sharded
+// run, its own frames followed by the halo frames they read):
 // the gather is address arithmetic, no expanded K/V exists. A slot that
 // repeats an earlier source of the same frame has mult 0 and is skipped; the
 // kept slot weights its probability mass by its multiplicity (exact: softmax
@@ -124,8 +126,8 @@ __global__ void __launch_bounds__(THREADS)
     vfa_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ ck,
                const float* __restrict__ cv, float* __restrict__ out,
-               const int* __restrict__ srcs, const int* __restrict__ mult, int F, int H,
-               int Lq, int L, int Lc, int ctx_valid, int dh, int S, float scale_log2) {
+               const int* __restrict__ srcs, const int* __restrict__ mult, int F, int Fk,
+               int H, int Lq, int L, int Lc, int ctx_valid, int dh, int S, float scale_log2) {
   extern __shared__ float smem[];
   const int ld = dh | 1;  // odd stride: the 16 key rows a warp reads hit 16 banks
   float* Qs = smem;           // [BQ][ld]
@@ -225,7 +227,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int s = 0; s < S; ++s) {
     const int w = mult[f * S + s];
     if (w == 0) continue;  // duplicate of an earlier slot (uniform per block)
-    const size_t base = row_base<TM>(b * F + srcs[f * S + s], hh, H, L, dh);
+    const size_t base = row_base<TM>(b * Fk + srcs[f * S + s], hh, H, L, dh);
     for (int k0 = 0; k0 < L; k0 += BK)
       tile(k + base + (size_t)k0 * ts, v + base + (size_t)k0 * ts, min(BK, L - k0), (float)w);
   }
@@ -252,8 +254,9 @@ __global__ void __launch_bounds__(THREADS)
 
 template <bool TM>
 int launch_fp32(const void* q, const void* k, const void* v, const void* ck, const void* cv,
-                void* out, const int* srcs, const int* mult, int B, int F, int H, int Lq, int L,
-                int Lc, int ctx_valid, int dh, int S, float sm_scale, cudaStream_t stream) {
+                void* out, const int* srcs, const int* mult, int B, int F, int Fk, int H, int Lq,
+                int L, int Lc, int ctx_valid, int dh, int S, float sm_scale,
+                cudaStream_t stream) {
   const size_t smem = smem_bytes(dh);
   cudaError_t err = cudaFuncSetAttribute(
       vfa_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(MAX_DH));
@@ -262,7 +265,7 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* ck, con
   vfa_kernel<TM><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(ck), static_cast<const float*>(cv), static_cast<float*>(out),
-      srcs, mult, F, H, Lq, L, Lc, ctx_valid, dh, S, sm_scale * 1.4426950408889634f);
+      srcs, mult, F, Fk, H, Lq, L, Lc, ctx_valid, dh, S, sm_scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -546,8 +549,9 @@ __global__ void __launch_bounds__(HOPPER_THREADS, 1)
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap tck,
                       const __grid_constant__ CUtensorMap tcv, bf16* __restrict__ out,
-                      const int* __restrict__ srcs, const int* __restrict__ mult, int F, int H,
-                      int Lq, int L, int ctx_valid, int dh, int S, int nq, float scale_log2) {
+                      const int* __restrict__ srcs, const int* __restrict__ mult, int F, int Fk,
+                      int H, int Lq, int L, int ctx_valid, int dh, int S, int nq,
+                      float scale_log2) {
   using Cfg = HopperCfg<KS>;
   constexpr int NA = Cfg::NA, BK = Cfg::BK, STAGES = Cfg::STAGES;
 
@@ -609,7 +613,7 @@ __global__ void __launch_bounds__(HOPPER_THREADS, 1)
         const bool ctx = t >= nslot;
         const int i = ctx ? 0 : t / nk;
         const int tok = (ctx ? t - nslot : t - i * nk) * BK;
-        const int src = ctx ? frame : b * F + kept_src[i];
+        const int src = ctx ? frame : b * Fk + kept_src[i];
         uint8_t* kd = sk + st * Cfg::KV_BYTES;
         uint8_t* vd = sv + st * Cfg::KV_BYTES;
 #pragma unroll
@@ -895,15 +899,16 @@ bool encode(CUtensorMap* map, const void* base, int frames, int H, int len, int 
 
 template <int KS, bool TM>
 int launch_hopper(const void* q, const void* k, const void* v, const void* ck, const void* cv,
-                  void* out, const int* srcs, const int* mult, int B, int F, int H, int Lq, int L,
-                  int Lc, int ctx_valid, int dh, int S, float sm_scale, cudaStream_t stream) {
+                  void* out, const int* srcs, const int* mult, int B, int F, int Fk, int H,
+                  int Lq, int L, int Lc, int ctx_valid, int dh, int S, float sm_scale,
+                  cudaStream_t stream) {
   using Cfg = HopperCfg<KS>;
   if (S > MAX_SLOTS) return (int)cudaErrorInvalidValue;
-  const int frames = B * F;
+  const int frames = B * F;  // q, out and context rows
   CUtensorMap tq, tk, tv, tck, tcv;
   bool ok = encode<TM>(&tq, q, frames, H, Lq, Lq, dh, HQ) &&
-            encode<TM>(&tk, k, frames, H, L, L, dh, Cfg::BK) &&
-            encode<TM>(&tv, v, frames, H, L, L, dh, Cfg::BK);
+            encode<TM>(&tk, k, B * Fk, H, L, L, dh, Cfg::BK) &&
+            encode<TM>(&tv, v, B * Fk, H, L, L, dh, Cfg::BK);
   if (ck != nullptr)
     ok = ok && encode<TM>(&tck, ck, frames, H, Lc, ctx_valid, dh, Cfg::BK) &&
          encode<TM>(&tcv, cv, frames, H, Lc, ctx_valid, dh, Cfg::BK);
@@ -915,21 +920,21 @@ int launch_hopper(const void* q, const void* k, const void* v, const void* ck, c
   if (err != cudaSuccess) return (int)err;
   const int nq = (Lq + HQ - 1) / HQ;
   vfa_hopper_kernel<KS, TM><<<frames * H * nq, HOPPER_THREADS, Cfg::BYTES, stream>>>(
-      tq, tk, tv, tck, tcv, static_cast<bf16*>(out), srcs, mult, F, H, Lq, L, ctx_valid, dh, S,
-      nq, sm_scale * 1.4426950408889634f);
+      tq, tk, tv, tck, tcv, static_cast<bf16*>(out), srcs, mult, F, Fk, H, Lq, L, ctx_valid, dh,
+      S, nq, sm_scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 template <bool TM>
 int launch(const void* q, const void* k, const void* v, const void* ck, const void* cv, void* out,
-           const int* srcs, const int* mult, int B, int F, int H, int Lq, int L, int Lc,
+           const int* srcs, const int* mult, int B, int F, int Fk, int H, int Lq, int L, int Lc,
            int ctx_valid, int dh, int S, float sm_scale, int is_bf16, void* stream) {
   if (dh <= 0 || dh > MAX_DH || dh % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
 #define VFA_HOPPER(KS)                                                                         \
   case KS:                                                                                     \
-    return launch_hopper<KS, TM>(q, k, v, ck, cv, out, srcs, mult, B, F, H, Lq, L, Lc,          \
+    return launch_hopper<KS, TM>(q, k, v, ck, cv, out, srcs, mult, B, F, Fk, H, Lq, L, Lc,      \
                                  ctx_valid, dh, S, sm_scale, st);
     switch ((dh + 15) / 16) {  // 16-deep steps of Q K^T: dh padded to 16 on chip
       VFA_HOPPER(1) VFA_HOPPER(2) VFA_HOPPER(3) VFA_HOPPER(4)
@@ -938,29 +943,32 @@ int launch(const void* q, const void* k, const void* v, const void* ck, const vo
 #undef VFA_HOPPER
     return (int)cudaErrorInvalidValue;
   }
-  return launch_fp32<TM>(q, k, v, ck, cv, out, srcs, mult, B, F, H, Lq, L, Lc, ctx_valid, dh, S,
-                         sm_scale, st);
+  return launch_fp32<TM>(q, k, v, ck, cv, out, srcs, mult, B, F, Fk, H, Lq, L, Lc, ctx_valid, dh,
+                         S, sm_scale, st);
 }
 
 }  // namespace
 
-// K1: head-major q [B, F, H, Lq, dh], k/v [B, F, H, L, dh], ctx [B, F, H, Lc, dh].
+// K1: head-major q [B, F, H, Lq, dh], k/v [B, Fk, H, L, dh], ctx [B, F, H, Lc, dh];
+// srcs/mult [F, S] index k/v's Fk frames.
 extern "C" int univst_video_flash_attention(const void* q, const void* k, const void* v,
                                             const void* ctx_k, const void* ctx_v, void* out,
                                             const int* srcs, const int* mult, int B, int F,
-                                            int H, int Lq, int L, int Lc, int ctx_valid, int dh,
-                                            int S, float sm_scale, int is_bf16, void* stream) {
-  return launch<false>(q, k, v, ctx_k, ctx_v, out, srcs, mult, B, F, H, Lq, L, Lc, ctx_valid, dh,
-                       S, sm_scale, is_bf16, stream);
+                                            int Fk, int H, int Lq, int L, int Lc, int ctx_valid,
+                                            int dh, int S, float sm_scale, int is_bf16,
+                                            void* stream) {
+  return launch<false>(q, k, v, ctx_k, ctx_v, out, srcs, mult, B, F, Fk, H, Lq, L, Lc, ctx_valid,
+                       dh, S, sm_scale, is_bf16, stream);
 }
 
-// K2: token-major q [B, F, Lq, H, dh], k/v [B, F, L, H, dh], ctx [B, F, Lc, H, dh].
+// K2: token-major q [B, F, Lq, H, dh], k/v [B, Fk, L, H, dh], ctx [B, F, Lc, H, dh];
+// srcs/mult [F, S] index k/v's Fk frames.
 extern "C" int univst_video_flash_attention_tokens(const void* q, const void* k, const void* v,
                                                    const void* ctx_k, const void* ctx_v,
                                                    void* out, const int* srcs, const int* mult,
-                                                   int B, int F, int H, int Lq, int L, int Lc,
-                                                   int ctx_valid, int dh, int S, float sm_scale,
-                                                   int is_bf16, void* stream) {
-  return launch<true>(q, k, v, ctx_k, ctx_v, out, srcs, mult, B, F, H, Lq, L, Lc, ctx_valid, dh,
-                      S, sm_scale, is_bf16, stream);
+                                                   int B, int F, int Fk, int H, int Lq, int L,
+                                                   int Lc, int ctx_valid, int dh, int S,
+                                                   float sm_scale, int is_bf16, void* stream) {
+  return launch<true>(q, k, v, ctx_k, ctx_v, out, srcs, mult, B, F, Fk, H, Lq, L, Lc, ctx_valid,
+                      dh, S, sm_scale, is_bf16, stream);
 }

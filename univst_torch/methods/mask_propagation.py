@@ -12,6 +12,11 @@ Subsampling ranks positions by uniform random scores. torch cannot draw the
 JAX package's ``jax.random`` numbers, so :func:`propagate_masks` takes a
 ``torch.Generator`` or an explicit ``scores`` tensor (the parity tests feed
 both implementations the same draw).
+
+Under a frame-parallel mesh the propagation stays whole: its ring of
+previous frames is sequential, so it runs on the gathered ``[F, T, C]``
+features (the pipeline gathers the captured feature), and the stylization
+takes the masks back as each rank's shard (``SDVideoPipeline._shard``).
 """
 
 from __future__ import annotations

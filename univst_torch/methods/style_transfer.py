@@ -48,11 +48,14 @@ def style_transfer_ddim_steps(
     solo: bool = False,
     capture: bool = False,
     eps_hook: Optional[Callable] = None,
+    shard=None,
 ):
     """Run a contiguous segment of the stylization loop (steps/ts of length K,
     trajectory chunks ``[K, F|1, h, w, C]``). ``eps_hook(eps, t, i,
     latents)``, where given, replaces the step's eps before the DDIM update
-    (the pixel smoother).
+    (the pixel smoother). ``shard`` (a ``distributed.comm.FrameShard``):
+    the latents, trajectories and mask hold this rank's frames, and the
+    AdaIN re-anchor's statistics span the ranks.
 
     Denoiser layouts:
       * ``style_kv=None``: 3-branch — ``denoise3([3F], t, i)``;
@@ -83,7 +86,7 @@ def style_transfer_ddim_steps(
             latents = (1.0 - m) * latents + m * cnt_t
         # AdaIN re-anchor, 0.8 N < i <= 0.9 N (stable_diffusion.py:694-702)
         if not _le(i, cfg.adain_lo * n) and _le(i, cfg.adain_hi * n):
-            anchored = latent_adain(latents, sty_t)
+            anchored = latent_adain(latents, sty_t, shard)
             if m is not None:
                 anchored = (1.0 - m) * anchored + m * cnt_t
             latents = anchored.to(latents.dtype)

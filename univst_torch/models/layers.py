@@ -39,11 +39,19 @@ class VideoCtx:
     (video_diffusion_sd/models/attention.py:356). ``pnp_frame_indices`` is the
     set of the patched decoder layers during stylization (pnp_utils.py:25);
     ``None`` falls back to ``frame_indices``.
+
+    ``shard`` (a ``distributed.comm.FrameShard``: the global frame count,
+    this rank's offset, the mesh) marks a frame-parallel forward:
+    ``num_frames`` is then this rank's share, and the layers that cross
+    frames (the sparse-causal attention, the frame-spanning GroupNorm, the
+    temporal taps and attentions) exchange what they read across ranks.
+    ``None`` on one device.
     """
 
     num_frames: int = 1
     frame_indices: Tuple[FrameIndex, ...] = (-1, 0, "first")
     pnp_frame_indices: Optional[Tuple[FrameIndex, ...]] = None
+    shard: Optional[object] = None
 
     @property
     def is_video(self) -> bool:
@@ -109,6 +117,8 @@ class GroupNorm(nn.Module):
     frames-in-batch layout, where a bare ``nn.GroupNorm`` would normalize each
     frame alone. ``across_frames=False`` is the per-frame form of the
     transformer blocks and the VAE. Statistics and affine run in fp32.
+    Under a frame ``shard`` the frame-spanning statistics combine every
+    rank's (``comm.sharded_var_mean``).
     """
 
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5,
@@ -120,17 +130,23 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x, num_frames: int = 1):
+    def forward(self, x, num_frames: int = 1, shard=None):
         n, c = x.shape[:2]
         g = self.num_groups
         xf = x.float()
-        if self.across_frames and num_frames > 1:
+        shard = shard if self.across_frames else None
+        if self.across_frames and (num_frames > 1 or shard is not None):
             xg = xf.reshape(n // num_frames, num_frames, g, c // g, -1)
             dims = (1, 3, 4)
         else:
             xg = xf.reshape(n, g, c // g, -1)
             dims = (2, 3)
-        var, mean = torch.var_mean(xg, dim=dims, unbiased=False, keepdim=True)
+        if shard is None:
+            var, mean = torch.var_mean(xg, dim=dims, unbiased=False, keepdim=True)
+        else:
+            from univst_torch.distributed.comm import sharded_var_mean
+
+            var, mean = sharded_var_mean(xg, dims, shard, site="group_norm")
         xn = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
         shape = (1, c) + (1,) * (x.dim() - 2)
         out = xn * self.weight.float().reshape(shape) + self.bias.float().reshape(shape)
@@ -196,8 +212,9 @@ class SelfAttention(nn.Module):
             elif style_ctx.cfg is not None:
                 q, k, v = apply_style_shift(q, k, v, style_ctx.step_idx, style_ctx.cfg,
                                             video_ctx.num_frames)
-        if video_ctx.is_video and indices:
-            out = video_mha(q, k, v, self.num_heads, video_ctx.num_frames, indices)
+        if indices and (video_ctx.is_video or video_ctx.shard is not None):
+            out = video_mha(q, k, v, self.num_heads, video_ctx.num_frames, indices,
+                            shard=video_ctx.shard)
         else:
             out = mha(q, k, v, self.num_heads)
         return self.to_out[0](out)
@@ -234,7 +251,13 @@ class TemporalSelfAttention(nn.Module):
         self.to_v = nn.Linear(dim, dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
 
-    def forward(self, x, num_frames: int):
+    def forward(self, x, num_frames: int, shard=None):
+        if shard is not None:
+            # Ulysses: every frame of 1/N of the tokens, and back
+            from univst_torch.distributed.comm import ulysses_to_frames, ulysses_to_tokens
+
+            out = self.forward(ulysses_to_tokens(x, shard), shard.num_frames)
+            return ulysses_to_frames(out, shard, x.shape[1])
         bf, l, d = x.shape
         f, h = num_frames, self.num_heads
         b, dh = bf // f, d // h
@@ -269,14 +292,22 @@ class PseudoConv3d(nn.Conv2d):
                 nn.init.dirac_(self.conv_temporal.weight)
                 nn.init.zeros_(self.conv_temporal.bias)
 
-    def forward(self, x, num_frames: int = 1):
+    def forward(self, x, num_frames: int = 1, shard=None):
         x = super().forward(x)
-        if self.conv_temporal is None or num_frames <= 1:
+        if self.conv_temporal is None or (num_frames <= 1 and shard is None):
             return x
         bf, c, h, w = x.shape
         b = bf // num_frames
-        xt = x.reshape(b, num_frames, c, h * w).permute(0, 3, 2, 1).reshape(b * h * w, c, num_frames)
-        xt = self.conv_temporal(xt).reshape(b, h * w, c, num_frames)
+        x4 = x.reshape(b, num_frames, c, h * w)
+        if shard is not None:
+            # the +/-1 frame from the neighbour ranks replaces the zero padding
+            from univst_torch.distributed.comm import halo_1d
+
+            xt = halo_1d(x4, shard, dim=1).permute(0, 3, 2, 1).reshape(b * h * w, c, -1)
+            xt = F.conv1d(xt, self.conv_temporal.weight, self.conv_temporal.bias)
+        else:
+            xt = self.conv_temporal(x4.permute(0, 3, 2, 1).reshape(b * h * w, c, num_frames))
+        xt = xt.reshape(b, h * w, c, num_frames)
         return xt.permute(0, 3, 2, 1).reshape(bf, c, h, w)
 
 

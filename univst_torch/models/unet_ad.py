@@ -159,12 +159,26 @@ class TemporalTransformer3DModel(nn.Module):
             [TemporalTransformerBlock(dim, cfg) for _ in range(cfg.motion_num_blocks)])
         self.proj_out = nn.Linear(dim, dim)
 
-    def forward(self, x, num_frames: int):
+    def forward(self, x, num_frames: int, shard=None):
+        """Under a frame ``shard`` the tokens move, after ``proj_in``, to the
+        layout of every frame and 1/N of the tokens (``comm.ulysses_to_tokens``,
+        one all-to-all; the JAX package's shard_map, unet_ad.py:186-220),
+        so the position table and the frame attentions see all F frames;
+        after ``proj_out`` they move back (one all-to-all). A token count
+        that does not divide the mesh gathers the frames instead."""
         bf, c, hh, ww = x.shape
         tokens = self.proj_in(self.norm(x).flatten(2).transpose(1, 2))
+        f = num_frames
+        if shard is not None:
+            from univst_torch.distributed.comm import ulysses_to_frames, ulysses_to_tokens
+
+            tokens, f = ulysses_to_tokens(tokens, shard, site="motion_module"), shard.num_frames
         for blk in self.transformer_blocks:
-            tokens = blk(tokens, num_frames)
-        return self.proj_out(tokens).transpose(1, 2).reshape(bf, c, hh, ww) + x
+            tokens = blk(tokens, f)
+        out = self.proj_out(tokens)
+        if shard is not None:
+            out = ulysses_to_frames(out, shard, hh * ww, site="motion_module")
+        return out.transpose(1, 2).reshape(bf, c, hh, ww) + x
 
 
 class MotionModule(nn.Module):
@@ -176,9 +190,9 @@ class MotionModule(nn.Module):
         self.temporal_transformer = TemporalTransformer3DModel(dim, cfg)
 
     def forward(self, x, video_ctx: VideoCtx):
-        if not video_ctx.is_video:
+        if not video_ctx.is_video and video_ctx.shard is None:
             return x
-        return self.temporal_transformer(x, video_ctx.num_frames)
+        return self.temporal_transformer(x, video_ctx.num_frames, video_ctx.shard)
 
 
 class ADResnetBlock(nn.Module):

@@ -119,8 +119,9 @@ class TransformerBlock(nn.Module):
         x = x + self.attn1(self.norm1(x), video_ctx, style_ctx)
         x = x + self.attn2(self.norm2(x), context)
         x = x + self.ff(self.norm3(x))
-        if self.temporal_attn and video_ctx.is_video:
-            x = x + self.attn_temporal(self.norm_temporal(x), video_ctx.num_frames)
+        if self.temporal_attn and (video_ctx.is_video or video_ctx.shard is not None):
+            x = x + self.attn_temporal(self.norm_temporal(x), video_ctx.num_frames,
+                                       video_ctx.shard)
         return x
 
 
@@ -175,12 +176,12 @@ class ResnetBlockP3D(nn.Module):
         self.conv2 = PseudoConv3d(out_ch, out_ch, 3, temporal=temporal)
         self.conv_shortcut = PseudoConv3d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
-    def forward(self, x, temb, num_frames: int):
-        h = self.conv1(F.silu(self.norm1(x, num_frames)), num_frames)
+    def forward(self, x, temb, num_frames: int, shard=None):
+        h = self.conv1(F.silu(self.norm1(x, num_frames, shard)), num_frames, shard)
         # temb is per video [B, C]: one copy per frame
         t = self.time_emb_proj(F.silu(temb)).repeat_interleave(num_frames, dim=0)
         h = h + t[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h, num_frames)), num_frames)
+        h = self.conv2(F.silu(self.norm2(h, num_frames, shard)), num_frames, shard)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -211,12 +212,12 @@ class DownBlock(nn.Module):
 
     def forward(self, x, temb, context, video_ctx, style_ctx, skips: List[torch.Tensor]):
         for i, res in enumerate(self.resnets):
-            x = res(x, temb, video_ctx.num_frames)
+            x = res(x, temb, video_ctx.num_frames, video_ctx.shard)
             if self.attentions is not None:
                 x = self.attentions[i](x, context, video_ctx, style_ctx)
             skips.append(x)
         if self.downsamplers is not None:
-            x = self.downsamplers[0].conv(x, video_ctx.num_frames)
+            x = self.downsamplers[0].conv(x, video_ctx.num_frames, video_ctx.shard)
             skips.append(x)
         return x
 
@@ -231,9 +232,9 @@ class MidBlock(nn.Module):
             [SpatioTemporalTransformer(ch, cfg, num_heads, temporal_attn=tmp)])
 
     def forward(self, x, temb, context, video_ctx, style_ctx):
-        x = self.resnets[0](x, temb, video_ctx.num_frames)
+        x = self.resnets[0](x, temb, video_ctx.num_frames, video_ctx.shard)
         x = self.attentions[0](x, context, video_ctx, style_ctx)
-        return self.resnets[1](x, temb, video_ctx.num_frames)
+        return self.resnets[1](x, temb, video_ctx.num_frames, video_ctx.shard)
 
 
 class UpBlock(nn.Module):
@@ -257,11 +258,13 @@ class UpBlock(nn.Module):
 
     def forward(self, x, skips: List[torch.Tensor], temb, context, video_ctx, style_ctx):
         for i, res in enumerate(self.resnets):
-            x = res(torch.cat([x, skips.pop()], dim=1), temb, video_ctx.num_frames)
+            x = res(torch.cat([x, skips.pop()], dim=1), temb, video_ctx.num_frames,
+                    video_ctx.shard)
             if self.attentions is not None:
                 x = self.attentions[i](x, context, video_ctx, style_ctx)
         if self.upsamplers is not None:
-            x = self.upsamplers[0].conv(upsample_nearest_2x(x), video_ctx.num_frames)
+            x = self.upsamplers[0].conv(upsample_nearest_2x(x), video_ctx.num_frames,
+                                        video_ctx.shard)
         return x
 
 
@@ -318,7 +321,7 @@ class UNetPseudo3D(nn.Module):
         temb = self.time_embedding(t_emb.to(dtype))
         context = context.to(dtype)
 
-        h = self.conv_in(x.to(dtype).permute(0, 3, 1, 2), f)
+        h = self.conv_in(x.to(dtype).permute(0, 3, 1, 2), f, video_ctx.shard)
         skips = [h]
         for blk in self.down_blocks:
             h = blk(h, temb, context, video_ctx, style_ctx, skips)
@@ -333,5 +336,5 @@ class UNetPseudo3D(nn.Module):
                 # reference saves sample[0] as [F, H, W, C]
                 # (unet_3d_condition.py:429-436); batch element 0 == branch 0
                 captured = h[:f].permute(0, 2, 3, 1)
-        h = self.conv_out(F.silu(self.conv_norm_out(h, f)), f)
+        h = self.conv_out(F.silu(self.conv_norm_out(h, f, video_ctx.shard)), f, video_ctx.shard)
         return h.permute(0, 2, 3, 1), captured

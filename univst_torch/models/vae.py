@@ -61,6 +61,17 @@ def _from_5d(x):
     return x.transpose(1, 2).reshape(b * f, c, h, w)
 
 
+def _time_conv(conv: nn.Conv3d, x, shard=None):
+    """A (3,1,1) conv over ``[B, C, F, H, W]``; under a frame ``shard`` the
+    +/-1 frame from the neighbour ranks (``comm.halo_1d``) replaces its zero
+    padding on the frame axis."""
+    if shard is None:
+        return conv(x)
+    from univst_torch.distributed.comm import halo_1d
+
+    return F.conv3d(halo_1d(x, shard, dim=2, site="vae_halo"), conv.weight, conv.bias)
+
+
 class VAEResnetBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, groups: int):
         super().__init__()
@@ -90,9 +101,9 @@ class TemporalResnetBlock(nn.Module):
         self.conv2 = nn.Conv3d(out_ch, out_ch, (3, 1, 1), padding=(1, 0, 0))
         self.conv_shortcut = nn.Conv3d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
-    def forward(self, x, num_frames: int):
-        h = _from_5d(self.conv1(_to_5d(F.silu(self.norm1(x)), num_frames)))
-        h = _from_5d(self.conv2(_to_5d(F.silu(self.norm2(h)), num_frames)))
+    def forward(self, x, num_frames: int, shard=None):
+        h = _from_5d(_time_conv(self.conv1, _to_5d(F.silu(self.norm1(x)), num_frames), shard))
+        h = _from_5d(_time_conv(self.conv2, _to_5d(F.silu(self.norm2(h)), num_frames), shard))
         if self.conv_shortcut is not None:
             x = _from_5d(self.conv_shortcut(_to_5d(x, num_frames)))
         return x + h
@@ -120,9 +131,9 @@ class SpatioTemporalResBlock(nn.Module):
         self.temporal_res_block = TemporalResnetBlock(out_ch, out_ch, groups)
         self.time_mixer = AlphaBlender()
 
-    def forward(self, x, num_frames: int):
+    def forward(self, x, num_frames: int, shard=None):
         h = self.spatial_res_block(x)
-        return self.time_mixer(h, self.temporal_res_block(h, num_frames))
+        return self.time_mixer(h, self.temporal_res_block(h, num_frames, shard))
 
 
 class VAEAttention(nn.Module):
@@ -229,22 +240,24 @@ class Decoder(nn.Module):
             self.time_conv_out = nn.Conv3d(cfg.out_channels, cfg.out_channels, (3, 1, 1),
                                            padding=(1, 0, 0))
 
-    def _res(self, blk, x, num_frames):
-        return blk(x, num_frames) if self.temporal else blk(x)
+    def _res(self, blk, x, num_frames, shard):
+        return blk(x, num_frames, shard) if self.temporal else blk(x)
 
-    def forward(self, z, num_frames: int = 1):
+    def forward(self, z, num_frames: int = 1, shard=None):
+        """``shard`` (a ``comm.FrameShard``): ``z`` holds this rank's
+        ``num_frames`` frames; the temporal convs read the neighbours'."""
         x = self.conv_in(z)
-        x = self._res(self.mid_block.resnets[0], x, num_frames)
+        x = self._res(self.mid_block.resnets[0], x, num_frames, shard)
         x = self.mid_block.attentions[0](x)
-        x = self._res(self.mid_block.resnets[1], x, num_frames)
+        x = self._res(self.mid_block.resnets[1], x, num_frames, shard)
         for blk in self.up_blocks:
             for r in blk.resnets:
-                x = self._res(r, x, num_frames)
+                x = self._res(r, x, num_frames, shard)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0].conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
         x = self.conv_out(F.silu(self.conv_norm_out(x)))
         if self.temporal:
-            x = _from_5d(self.time_conv_out(_to_5d(x, num_frames)))
+            x = _from_5d(_time_conv(self.time_conv_out, _to_5d(x, num_frames), shard))
         return x
 
 
@@ -271,11 +284,11 @@ class AutoencoderKL(nn.Module):
         mean, logvar = moments.permute(0, 2, 3, 1).chunk(2, dim=-1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
 
-    def decode(self, z, num_frames: int = 1):
+    def decode(self, z, num_frames: int = 1, shard=None):
         z = z.to(self.dtype).permute(0, 3, 1, 2)
         if not self.cfg.temporal_decoder:
             z = self.post_quant_conv(z)
-        return self.decoder(z, num_frames).permute(0, 2, 3, 1)
+        return self.decoder(z, num_frames, shard).permute(0, 2, 3, 1)
 
 
 def sample_latent(mean, logvar, generator: Optional[torch.Generator] = None, noise=None):

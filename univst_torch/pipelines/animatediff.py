@@ -44,6 +44,7 @@ def build_animatediff(
     lora_path: Optional[str] = None,
     lora_alpha: float = 0.8,
     device=None,
+    mesh=None,
 ) -> SDVideoPipeline:
     """Build the AnimateDiff pipeline on ``device`` (CUDA unless the CPU is
     asked for): the AnimateDiff UNet, the SVD temporal-decoder VAE and the
@@ -59,6 +60,10 @@ def build_animatediff(
       * ``lora_path``: a webui-format LoRA merged into the UNet and text
         encoder weights at ``lora_alpha``;
       * ``motion_module_path``: the motion checkpoint (``mm_sd_v15_v2``).
+
+    ``mesh``: frame-parallel over it (``SDVideoPipeline.with_mesh``; the
+    motion modules' frame attention then runs on all frames of 1/N of the
+    tokens, between two all-to-alls).
     """
     device = resolve_device(device)
     set_precision()
@@ -118,4 +123,4 @@ def build_animatediff(
         unet=unet, vae=vae, text_encoder=text, tokenizer=Tokenizer(tok_dir),
         schedule=DDIMSchedule(DDIMConfig(beta_schedule="linear")), num_frames=num_frames,
         device=device, dtype=dtype, style_shift_cfg=AD_STYLE_SHIFT, base_frame_indices=(),
-        pnp_frame_indices=(), style_singleton=False)
+        pnp_frame_indices=(), style_singleton=False).with_mesh(mesh)

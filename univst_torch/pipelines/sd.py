@@ -30,6 +30,10 @@ from univst_torch.core.config import (
     StyleTransferConfig,
 )
 from univst_torch.core.scheduler import DDIMConfig, DDIMSchedule, EasyInvConfig
+from univst_torch.distributed.comm import FrameShard
+from univst_torch.distributed.mesh import (
+    Mesh, gather_frames, replicate, replicate_input, shard_input,
+)
 from univst_torch.methods import flow
 from univst_torch.methods import inversion as inv
 from univst_torch.methods.style_transfer import style_transfer_ddim_steps
@@ -114,6 +118,12 @@ class SDVideoPipeline:
     # ``models.raft.make_raft_flow`` gives RAFT (the reference smoother's
     # flow, src/cal_optica_flow.py:53-54).
     flow_fn: Optional[Callable] = None
+    # Frame parallelism (``with_mesh``): every rank holds the modules and
+    # the whole input, and runs its share of the frames.
+    mesh: Optional[Mesh] = None
+    # Under a mesh, gather each stage's frame-axis outputs onto every rank
+    # (True), or return the rank's shard (False; a later stage takes either).
+    gather: bool = True
 
     # -- construction --------------------------------------------------------
 
@@ -127,12 +137,14 @@ class SDVideoPipeline:
         capture_up_block: Optional[int] = None,
         seed: int = 0,
         device=None,
+        mesh: Optional[Mesh] = None,
     ) -> "SDVideoPipeline":
         """Build the modules on ``device`` (CUDA unless the CPU is asked for)
         and load a checkpoint directory strictly when one is given; else
         random weights from a generator seeded with ``seed``. The UNet is
         paired with the SVD temporal-decoder VAE, as the reference does
-        (run_content_inversion_sd.py:41-43). The modules take any size."""
+        (run_content_inversion_sd.py:41-43). The modules take any size.
+        ``mesh``: frame-parallel over it (:meth:`with_mesh`)."""
         device = resolve_device(device)
         set_precision()
         unet_cfg = {"sd15": UNetSDConfig.sd15, "sd21": UNetSDConfig.sd21,
@@ -159,12 +171,62 @@ class SDVideoPipeline:
             tok_dir = cand if os.path.isdir(cand) else None
         return cls(unet=unet, vae=vae, text_encoder=text, tokenizer=Tokenizer(tok_dir),
                    schedule=DDIMSchedule(DDIMConfig()), num_frames=num_frames,
-                   device=device, dtype=dtype)
+                   device=device, dtype=dtype).with_mesh(mesh)
 
     def with_frames(self, num_frames: int) -> "SDVideoPipeline":
         """The same modules driven at another frame count (the single-frame
         style inversion shares the content pipeline's weights)."""
         return dataclasses.replace(self, num_frames=num_frames)
+
+    # -- frame parallelism -------------------------------------------------------
+
+    def with_mesh(self, mesh: Optional[Mesh], gather: bool = True) -> "SDVideoPipeline":
+        """The pipeline running frame-parallel over ``mesh`` (the counterpart
+        of univst_tpu/pipelines/sd.py:197-226): the modules are replicated
+        from rank 0; every stage then takes the whole input on every rank,
+        runs the rank's share of the frames (``_shard``; a frame count that
+        does not divide the mesh, such as the single-frame style inversion,
+        runs replicated) with the collectives of ``distributed.comm``, and
+        gathers its frame-axis outputs (``gather=False``: returns the
+        rank's shard). Serves SD and AnimateDiff alike."""
+        if mesh is None:
+            return self
+        for m in (self.unet, self.vae, self.text_encoder):
+            replicate(m, mesh)
+        return dataclasses.replace(self, mesh=mesh, gather=gather)
+
+    def _frame_shard(self, num_frames: Optional[int] = None) -> Optional[FrameShard]:
+        """This rank's share of a ``num_frames`` clip (default the
+        pipeline's), or None: no mesh, or a count the mesh does not divide."""
+        nf = self.num_frames if num_frames is None else num_frames
+        if self.mesh is None or self.mesh.n_data == 1 or nf % self.mesh.n_data:
+            return None
+        return FrameShard.of(self.mesh, nf)
+
+    def _shard(self, x, axis: int = 0, num_frames: Optional[int] = None):
+        """The rank's slice of a whole-clip input's frame axis; an input that
+        is already a shard, or whose axis is not the clip's, passes."""
+        nf = self.num_frames if num_frames is None else num_frames
+        if x is None or self._frame_shard(nf) is None or x.shape[axis] != nf:
+            return x
+        return shard_input(self.mesh, x, axis)
+
+    def _replicated(self, x):
+        return replicate_input(self.mesh, x)
+
+    def _gather(self, x, shard: Optional[FrameShard], axis: int = 0):
+        if shard is None or not self.gather or x is None:
+            return x
+        return gather_frames(x, self.mesh, axis, site="outputs")
+
+    def _video_ctx(self, num_frames: int, frame_indices, pnp_frame_indices=None) -> VideoCtx:
+        """The video context of a ``num_frames`` forward: the rank's share
+        and its ``shard`` under a mesh."""
+        shard = self._frame_shard(num_frames)
+        return VideoCtx(num_frames=num_frames if shard is None else shard.local,
+                        frame_indices=tuple(frame_indices),
+                        pnp_frame_indices=None if pnp_frame_indices is None
+                        else tuple(pnp_frame_indices), shard=shard)
 
     # -- stages ---------------------------------------------------------------
 
@@ -176,17 +238,27 @@ class SDVideoPipeline:
     @torch.inference_mode()
     def encode_frames(self, frames, generator: Optional[torch.Generator] = None, noise=None):
         """[F, H, W, 3] in [-1, 1] -> sampled latents [F, h, w, 4] * scaling
-        (fp32). ``noise`` overrides the posterior draw from ``generator``."""
+        (fp32). ``noise`` overrides the posterior draw from ``generator``.
+        Under a mesh each rank encodes its frames and takes its slice of the
+        whole clip's draw."""
         x = torch.as_tensor(np.asarray(frames), device=self.device)
-        mean, logvar = self.vae.encode(x.to(self.dtype))
+        nf, shard = x.shape[0], self._frame_shard(x.shape[0])
+        mean, logvar = self.vae.encode(self._shard(x, num_frames=nf).to(self.dtype))
+        if shard is not None:
+            if noise is None:
+                noise = torch.randn((nf,) + tuple(mean.shape[1:]), generator=generator,
+                                    device=mean.device, dtype=torch.float32)
+            noise = self._shard(torch.as_tensor(noise), num_frames=nf)
         z = sample_latent(mean.float(), logvar.float(), generator, noise)
-        return z * self.vae.cfg.scaling_factor
+        return self._gather(z * self.vae.cfg.scaling_factor, shard)
 
     @torch.inference_mode()
     def _decode(self, latents, num_frames: int):
+        shard = self._frame_shard(num_frames)
+        latents = self._shard(latents, num_frames=num_frames)
         z = (latents.to(self.device).float() / self.vae.cfg.scaling_factor).to(self.dtype)
-        px = self.vae.decode(z, num_frames)
-        return torch.clamp(px.float() / 2.0 + 0.5, 0.0, 1.0)
+        px = self.vae.decode(z, num_frames if shard is None else shard.local, shard)
+        return self._gather(torch.clamp(px.float() / 2.0 + 0.5, 0.0, 1.0), shard)
 
     def decode_latents(self, latents):
         """latents [F, h, w, 4] -> frames [F, H, W, 3] in [0, 1] (reference
@@ -218,10 +290,9 @@ class SDVideoPipeline:
         f = self.num_frames if num_frames is None else num_frames
         if style_cfg is None and not pnp_plain:
             # inversion / reconstruction: unpatched model, default indices
-            vctx = VideoCtx(num_frames=f, frame_indices=tuple(frame_indices))
+            vctx = self._video_ctx(f, frame_indices)
         else:
-            vctx = VideoCtx(num_frames=f, frame_indices=self.base_frame_indices,
-                            pnp_frame_indices=tuple(frame_indices))
+            vctx = self._video_ctx(f, self.base_frame_indices, frame_indices)
 
         def denoise(latents, t, step_idx, style_kv=None):
             if style_cfg is not None:
@@ -243,7 +314,9 @@ class SDVideoPipeline:
         """Content/style inversion -> (trajectory [N+1, ...], captured feature)
         (reference ddim_inversion, inversion_tools/ddim_inversion.py:71-84)."""
         ts = self.schedule.timesteps(num_steps)[::-1]
-        latents = latents.to(self.device).float()
+        shard = self._frame_shard()
+        latents = self._shard(latents).to(self.device).float()
+        context = self._replicated(context)
         denoise = self._denoise_fn(context, self.base_frame_indices, None)
         if self.unet.cfg.capture_up_block is None:
             capture_timestep = None
@@ -251,7 +324,8 @@ class SDVideoPipeline:
             denoise, (latents, latents, None), range(num_steps), ts, self.schedule,
             num_steps, easyinv=EasyInvConfig() if is_opt else None,
             capture_timestep=capture_timestep)
-        return torch.cat([latents[None], traj]), captured
+        return (self._gather(torch.cat([latents[None], traj]), shard, axis=1),
+                self._gather(captured, shard))
 
     @torch.inference_mode()
     def reconstruct_latents(self, latents_T, context, num_steps: int = 50,
@@ -264,7 +338,9 @@ class SDVideoPipeline:
         (stable_diffusion.py:588-614); ``uncond_context`` defaults to the
         empty prompt's embedding."""
         ts = self.schedule.timesteps(num_steps)
-        latent = latents_T.to(self.device).float()
+        shard = self._frame_shard()
+        latent = self._shard(latents_T).to(self.device).float()
+        context = self._replicated(context)
         if guidance_scale > 1.0:
             uc = uncond_context if uncond_context is not None else self.encode_text("")
             denoise2 = self._denoise_fn(torch.cat([uc.to(self.device), context]),
@@ -275,8 +351,8 @@ class SDVideoPipeline:
                 return eps_u + guidance_scale * (eps_c - eps_u), None
         else:
             denoise = self._denoise_fn(context, self.base_frame_indices, None)
-        return inv.ddim_sample_segment(denoise, latent, range(num_steps), ts, self.schedule,
-                                       num_steps)
+        return self._gather(inv.ddim_sample_segment(denoise, latent, range(num_steps), ts,
+                                                    self.schedule, num_steps), shard)
 
     @torch.inference_mode()
     def stylize_latents(self, content_traj_rev, style_traj_rev, init_latents, context3,
@@ -298,17 +374,25 @@ class SDVideoPipeline:
         of the smoothing steps, and each step in ``cfg.smoother_steps`` =
         [lo, hi) smooths its x0 estimate in pixel space (:meth:`_smooth_eps`)
         on whichever phase-1 path runs.
+
+        Under a mesh the trajectories (frame axis 1), the initial latents and
+        the mask (axis 0) are sharded, the text context replicated; the
+        singleton style pre-pass runs replicated on every rank.
         """
         scfg = style_cfg if style_cfg is not None else self.style_shift_cfg
         n = cfg.num_steps
         ts = self.schedule.timesteps(n)
         dev = self.device
-        content_traj_rev = content_traj_rev.to(dev)
-        style_traj_rev = style_traj_rev.to(dev)
-        mask = None if mask is None else torch.as_tensor(mask, device=dev)
-        context3 = context3.to(dev)
+        shard = self._frame_shard()
+        content_traj_rev = self._shard(content_traj_rev, axis=1).to(dev)
+        style_traj_rev = self._shard(style_traj_rev, axis=1).to(dev)
+        init_latents = self._shard(init_latents)
+        mask = None if mask is None else self._shard(torch.as_tensor(mask, device=dev))
+        context3 = self._replicated(context3.to(dev))
         if cfg.smoother not in (None, "pixel"):
             raise ValueError(f"smoother {cfg.smoother!r}: use None or 'pixel'")
+        if cfg.smoother is not None and shard is not None:
+            raise NotImplementedError("the pixel smoother does not run frame-parallel yet")
 
         window_end = scfg.window_end()
         if cfg.smoother is not None:
@@ -345,7 +429,7 @@ class SDVideoPipeline:
         for s0, c in phase2:
             latents = self._stylize_chunk_solo(content_traj_rev, style_traj_rev, latents, ts,
                                                s0, context3, mask, cfg, c)
-        return latents
+        return self._gather(latents, shard)
 
     def _style_prepass(self, style_traj_rev, ts, context3, k1: int):
         """The style branch's projected PnP K/V for all k1 steps in one
@@ -372,13 +456,12 @@ class SDVideoPipeline:
         return style_transfer_ddim_steps(
             denoise2, content[sl], style[sl], latents, range(s0, s0 + chunk), ts[sl],
             self.schedule, cfg, mask=mask, eps_hook=eps_hook,
-            style_kv=tuple((k[sl], v[sl]) for k, v in style_kv_all))
+            style_kv=tuple((k[sl], v[sl]) for k, v in style_kv_all), shard=self._frame_shard())
 
     def _stylize_vctx(self, num_frames: int) -> VideoCtx:
         """The stylization forward's video context: the patched decoder
         layers use the PnP index set, the rest the model default."""
-        return VideoCtx(num_frames=num_frames, frame_indices=self.base_frame_indices,
-                        pnp_frame_indices=self.pnp_frame_indices)
+        return self._video_ctx(num_frames, self.base_frame_indices, self.pnp_frame_indices)
 
     def _stylize_chunk_capture(self, content, style, latents, ts, s0, context3, mask, cfg,
                                style_cfg, chunk, eps_hook=None):
@@ -401,7 +484,8 @@ class SDVideoPipeline:
         sl = slice(s0, s0 + chunk)
         return style_transfer_ddim_steps(
             denoise2, content[sl], style[sl], latents, range(s0, s0 + chunk), ts[sl],
-            self.schedule, cfg, mask=mask, capture=True, eps_hook=eps_hook)
+            self.schedule, cfg, mask=mask, capture=True, eps_hook=eps_hook,
+            shard=self._frame_shard())
 
     def _stylize_chunk_prepass(self, content, style, latents, ts, s0, context3, mask, cfg,
                                style_cfg, chunk, eps_hook=None):
@@ -410,12 +494,12 @@ class SDVideoPipeline:
         each step a video of its own with its own timestep (every op is per
         row or per F-row video, and the frame positions repeat per video),
         then the injected 2-branch steps."""
-        f, sl = self.num_frames, slice(s0, s0 + chunk)
-        style_seg = style[sl]
+        vctx, sl = self._stylize_vctx(self.num_frames), slice(s0, s0 + chunk)
+        f, style_seg = vctx.num_frames, style[sl]
         sctx = StyleCtx(step_idx=0, cfg=style_cfg, capture=True)
         self.unet(style_seg.reshape((chunk * f,) + style_seg.shape[2:]).to(self.dtype),
                   torch.as_tensor(np.ascontiguousarray(ts[sl]), device=self.device),
-                  context3[1:2].expand(chunk * f, -1, -1), self._stylize_vctx(f), sctx)
+                  context3[1:2].expand(chunk * f, -1, -1), vctx, sctx)
         kv_all = tuple((k.reshape((chunk, f) + k.shape[1:]), v.reshape((chunk, f) + v.shape[1:]))
                        for k, v in extract_pnp_kv(sctx.captured))
         denoise = self._denoise_fn(torch.cat([context3[:1], context3[2:3]]),
@@ -426,7 +510,8 @@ class SDVideoPipeline:
 
         return style_transfer_ddim_steps(
             denoise2, content[sl], style_seg, latents, range(s0, s0 + chunk), ts[sl],
-            self.schedule, cfg, mask=mask, style_kv=kv_all, eps_hook=eps_hook)
+            self.schedule, cfg, mask=mask, style_kv=kv_all, eps_hook=eps_hook,
+            shard=vctx.shard)
 
     def _smooth_hook(self, cfg, mask) -> Optional[Callable]:
         """The pixel smoother as ``style_transfer_ddim_steps``' eps hook:
@@ -469,4 +554,4 @@ class SDVideoPipeline:
         sl = slice(s0, s0 + chunk)
         return style_transfer_ddim_steps(
             denoise1, content[sl], style[sl], latents, range(s0, s0 + chunk), ts[sl],
-            self.schedule, cfg, mask=mask, solo=True)
+            self.schedule, cfg, mask=mask, solo=True, shard=self._frame_shard())

@@ -135,14 +135,17 @@ def save_frames(frames: np.ndarray, path: str) -> None:
 
 def save_video(frames: np.ndarray, path: str, fps: int = 8) -> None:
     """Save ``[F, H, W, 3]`` fp32 in [0, 1] as mp4 (reference
-    src/util.py:34-47 ``save_videos_grid``). Falls back to PNG frames if no
-    ffmpeg backend is available."""
-    import imageio
-
+    src/util.py:34-47 ``save_videos_grid``). Falls back to PNG frames
+    (``<path stem>_frames/``) if imageio or its ffmpeg backend is missing."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     x = frames if frames.dtype == np.uint8 else (
         np.clip(frames, 0.0, 1.0) * 255.0
     ).astype(np.uint8)
+    try:
+        import imageio
+    except ImportError:
+        save_frames(frames, os.path.splitext(path)[0] + "_frames")
+        return
     try:
         imageio.mimsave(path, list(x), fps=fps)
     except Exception:
