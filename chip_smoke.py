@@ -2,7 +2,8 @@
 """Drive the PyTorch port's SD-1.5 (with and without the pixel smoother),
 AnimateDiff-v2, SD3-medium, SD3.5-medium and SD3.5-large workflows on one
 NVIDIA GPU, profile three of its forwards, and run the SD-1.5 and
-AnimateDiff workflows frame-parallel as ranks that share the card.
+AnimateDiff workflows frame-parallel, and SD3 on a ``data x tensor`` mesh,
+as ranks that share the card.
 
     python3 chip_smoke.py [--steps N] [--ad_steps N] [--sd3_steps N] [--sd35l_steps N]
 
@@ -79,7 +80,8 @@ none catches its own failure:
    must launch 4 x (blocks + dual-attention blocks) x steps times, K1
    never. ``[sd3]``: SD3-medium (24 blocks, 24 heads of 64; 96 a step).
    ``[sd35m]``: SD3.5-medium (24 blocks, 24 heads of 64, q/k RMS norms,
-   dual attention, without context, in blocks 0-12; 148 a step).
+   dual attention, without context, in blocks 0-12; 148 a step) at
+   ``SD35M_STEPS``.
    ``[sd35l]``: SD3.5-large (38 blocks, 38 heads of 64, q/k RMS norms; 152
    a step) at ``--sd35l_steps``.
 10. Profile (``[profile]``): one 16-frame SD-1.5 UNet forward at 512 px
@@ -98,13 +100,14 @@ none catches its own failure:
    ``[2,8,8,4096,40]``, both index sets, rank 2 of 4 at ``[2,4,...]``,
    the 32x32 level) against its plain version and against the unsharded
    16-frame call's rows, a slot table shifted by one frame that the check
-   must reject, and K2's shard form on one case. Then jobs of 2 or 4
-   ranks (``torch.multiprocessing`` spawn, gloo over a file store, every
-   rank on ``cuda:0``, a process-group timeout of 300 s): SD-1.5 bf16 at
-   512 px / 16 frames over 2 ranks against ``[main]``; SD-1.5 fp32 at 256
-   px / 8 frames / 6 steps over 2 and 4 ranks against a one-process fp32
-   run; AnimateDiff-v2 bf16 at 512 px / 16 frames / 10 steps
-   over 2 ranks against a one-process run. Each rank prints its stage
+   must reject, and K2's shard form (also at a tensor rank's share of the
+   heads, 12 of 24 and 19 of 38, with a planted slot-table shift). Then
+   jobs of 2 or 4 ranks (``torch.multiprocessing`` spawn, gloo over a file
+   store, every rank on ``cuda:0``, a process-group timeout of 300 s):
+   SD-1.5 bf16 at 512 px / 16 frames / 10 steps over 2 ranks; SD-1.5 fp32
+   at 256 px / 8 frames / 6 steps over 2 and 4 ranks; AnimateDiff-v2 bf16
+   at 512 px / 16 frames / 6 steps over 2 ranks; each against a
+   one-process run at its steps (``MESH_JOBS``). Each rank prints its stage
    seconds, its collective census per stage and per inversion forward, the
    host milliseconds in collectives, its peak memory and its launches (K1:
    10 per SD forward at 512 px, 5 at 256 px). Gated: the workflow finite,
@@ -112,21 +115,42 @@ none catches its own failure:
    reference's inputs (``_forward_pair``): with the UNet in fp32 within
    rtol 2e-4 / atol 2e-5, and, for the bf16 jobs, in bf16 no further from
    the reference's fp32 forward than the reference's own bf16 forward is,
-   up to ``MESH_BF16_RATIO``. Reported: the workflow bars (``_compare``).
+   up to ``MESH_BF16_RATIO``. Each bf16 job also has its floor: the same
+   workflow in fp32 on one card from the same inputs. Then every stage
+   (encode, content and style inversion, mask propagation, stylization,
+   decode, reconstruction) runs once more on the ranks, fed the one-card
+   run's own inputs to that stage (the fp32 reference's, or the bf16 job's
+   fp32 floor's), and is gated (``_stage_gates``): fp32 within the same
+   bar, bf16 within ``MESH_BF16_RATIO`` of the one-card bf16 pipeline fed
+   the same inputs. Reported: the workflow bars (``_compare``), the
+   workflow against its floor (``_workflow_floor``) and, for the fp32
+   jobs, what the encode's batch shape alone does on one card
+   (``_encode_batch_floor``).
+12. SD3 on a ``data x tensor`` mesh (``[mesh]``, ``SD3_MESH_JOBS``):
+   SD3-medium bf16 at 512 px / 16 frames / 2 steps over ``data=2`` and
+   SD3.5-medium bf16 at 512 px / 8 frames / 1 step over ``data=2,
+   tensor=2`` (4 gloo ranks that build one at a time, each freeing its
+   text encoders, then ``with_mesh`` splits the MMDiT over the tensor
+   axis), each against its one-card bf16 run and fp32 floor, gated as
+   above (``_forward_pair_sd3``: the inversion forward and the injected
+   2-branch forward with its single-frame capture); K2 launches 4 x
+   (blocks + dual blocks) x steps a rank; the census per forward (halo
+   all-to-alls, all-reduces and their MB).
 
 Each path's launch counters are zeroed just before it and read just after;
 a kernel's ``launches`` in the JSON line is the sum over its paths, each
 path's own count under ``launches_by_path`` (K1: the SD, SD-fallback,
 smoother, profile and mesh paths; K2: SD3-medium, SD3.5-medium,
-SD3.5-large, profile and mesh). The last line is ``{"ok": true, "device": {...}}``; the lines
-before it hold the per-kernel JSON and the card's name and power limit. Any
-failed check exits non-zero. ``--steps`` (SD-1.5) and ``--ad_steps``
-default to 30 and ``--sd3_steps`` (SD3-medium and SD3.5-medium) to 32: the
-fewest that run both stylization phases (the shift windows of the 50-step
-constants close after step 25 (SD), 24 (AD) and 30 (SD3)); 50 is the full
-workload. ``--sd35l_steps`` defaults to 8, cut to keep the script within
-its time limit: SD3.5-large runs the 2-branch stylization phase only
-(its stylized-only forward has the reconstruction forward's shape).
+SD3.5-large, profile, mesh and mesh_sd3). The last line is ``{"ok": true,
+"device": {...}}``; the lines before it hold the per-kernel JSON and the
+card's name and power limit. Any failed check exits non-zero. ``--steps``
+(SD-1.5) and ``--ad_steps`` default to 30 and ``--sd3_steps`` (SD3-medium)
+to 32: the fewest that run both stylization phases (the shift windows of
+the 50-step constants close after step 25 (SD), 24 (AD) and 30 (SD3)); 50
+is the full workload. ``--sd35l_steps`` and ``SD35M_STEPS`` are 8, cut to
+keep the script within its time limit: SD3.5-large and SD3.5-medium run
+the 2-branch stylization phase only (the stylized-only forward has the
+reconstruction forward's shape; SD3-medium runs it at the same widths).
 """
 
 from __future__ import annotations
@@ -291,19 +315,22 @@ def _vfa_case(b, f, h, l, dh, idx, dtype, lq=None, lc=None, ctx_valid=None, reps
               f"{planted:.3g}x the tolerance", flush=True)
     ms = _time_ms(lambda: video_flash_attention(q, k, v, idx, **kw), reps)
     plain_ms = _time_ms(lambda: video_flash_attention_plain(q, k, v, idx, **kw), 1)
-    library_ms = None
-    if not lc and lq == l:
-        # yardstick: PyTorch's fused attention on the expanded K/V
-        def heads(x):
-            return x.reshape(b * f, h, x.shape[3], dh)
+    # yardstick: PyTorch's fused attention on the expanded K/V, the frame's
+    # valid context rows appended
+    def heads(x):
+        return x.reshape(b * f, h, x.shape[3], dh)
 
-        def expand(x):
-            xt = x.permute(0, 1, 3, 2, 4).reshape(b * f, l, h * dh)
-            xe = cross_frame_kv(xt, f, idx)
-            return xe.reshape(b * f, -1, h, dh).transpose(1, 2).contiguous()
+    def expand(x):
+        xt = x.permute(0, 1, 3, 2, 4).reshape(b * f, l, h * dh)
+        xe = cross_frame_kv(xt, f, idx)
+        return xe.reshape(b * f, -1, h, dh).transpose(1, 2).contiguous()
 
-        qh, ke, ve = heads(q), expand(k), expand(v)
-        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qh, ke, ve), reps)
+    qh, ke, ve = heads(q), expand(k), expand(v)
+    if lc:
+        ke = torch.cat([ke, heads(kw["ctx_k"])[:, :, :ctx_valid]], dim=2)
+        ve = torch.cat([ve, heads(kw["ctx_v"])[:, :, :ctx_valid]], dim=2)
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qh, ke, ve), reps)
+    del qh, ke, ve
     case = dict(shape=[b, f, h, lq, l, dh], indices=list(idx), dtype=str(dtype).split(".")[-1],
                 ctx=[lc, ctx_valid] if lc else None, max_abs_err=err, err_over_tol=ratio,
                 planted_err_over_tol=planted, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -563,8 +590,6 @@ def _workflow(pipe, backbone: str, steps: int, nf: int, px: int, tag: str) -> di
     (``distributed.census``) are kept."""
     import torch
 
-    from univst_torch.core.adain import latent_adain
-    from univst_torch.core.config import StyleTransferConfig
     from univst_torch.distributed.census import collect_collectives, summarize
 
     device = pipe.device
@@ -590,29 +615,55 @@ def _workflow(pipe, backbone: str, steps: int, nf: int, px: int, tag: str) -> di
         latents, ctx, num_steps=steps, is_opt=True, capture_timestep=cap_t))
     # SD: one frame (every frame of the repeated style image evolves alike);
     # AnimateDiff: all frames (the motion modules tell them apart)
-    spipe = pipe.with_frames(1) if backbone == "sd" else pipe
-    straj = run("style_inversion", lambda: spipe.invert(
-        spipe.encode_frames(style, gen), ctx, num_steps=steps, is_opt=False)[0])
+    spipe = _style_pipe(pipe, backbone)
+
+    def style_inversion():
+        slat = spipe.encode_frames(style, gen)
+        return slat, spipe.invert(slat, ctx, num_steps=steps, is_opt=False)[0]
+
+    slatents, straj = run("style_inversion", style_inversion)
     masks = run("mask_propagation", lambda: _propagate(feat, mask0, device))
-
-    def stylize():
-        content_rev = torch.flip(traj, dims=[0])
-        style_rev = torch.flip(straj, dims=[0])
-        if backbone == "sd":
-            style_rev = style_rev[:, :1]
-            init = latent_adain(content_rev[0], style_rev[0])
-        else:  # the AnimateDiff runner starts from the raw content noise
-            init = content_rev[0]
-        return pipe.stylize_latents(content_rev, style_rev, init, torch.cat([ctx] * 3),
-                                    mask=masks.float() / 255.0,
-                                    cfg=StyleTransferConfig(num_steps=steps))
-
-    out = run("stylize", stylize)
+    out = run("stylize", lambda: _stylize(pipe, backbone, traj, straj, ctx, masks, steps))
     chunks = run("decode", lambda: pipe.decode_latents_uint8_chunks(out, 8))
     rec = run("reconstruction", lambda: pipe.reconstruct_latents(traj[-1], ctx, num_steps=steps))
-    return dict(latents=latents, ctx=ctx, traj=traj, feat=feat, straj=straj, masks=masks,
-                out=out, video=torch.cat(chunks), rec=rec, stage=stage, census=census,
-                main_s=time.time() - t_main)
+    return dict(latents=latents, slatents=slatents, ctx=ctx, traj=traj, feat=feat, straj=straj,
+                masks=masks, out=out, video=torch.cat(chunks), rec=rec, stage=stage,
+                census=census, main_s=time.time() - t_main)
+
+
+def _style_pipe(pipe, backbone: str):
+    return pipe.with_frames(1) if backbone == "sd" else pipe
+
+
+def _stylize(pipe, backbone: str, traj, straj, ctx, masks, steps: int):
+    """The workflow's stylization: SD from the AdaIN-shifted content noise
+    and the singleton style; AnimateDiff (its runner) from the raw content
+    noise and every style frame."""
+    import torch
+
+    from univst_torch.core.adain import latent_adain
+    from univst_torch.core.config import StyleTransferConfig
+
+    content_rev = torch.flip(traj, dims=[0])
+    style_rev = torch.flip(straj, dims=[0])
+    if backbone == "sd":
+        style_rev = style_rev[:, :1]
+        init = latent_adain(content_rev[0], style_rev[0])
+    else:
+        init = content_rev[0]
+    return pipe.stylize_latents(content_rev, style_rev, init, torch.cat([ctx] * 3),
+                                mask=masks.float() / 255.0,
+                                cfg=StyleTransferConfig(num_steps=steps))
+
+
+def _decode_float(pipe, out, chunk: int = 8):
+    """The workflow's chunked decode in [0, 1], before its uint8 rounding."""
+    import torch
+
+    if chunk >= out.shape[0]:
+        return pipe.decode_latents(out)
+    return torch.cat([pipe._decode(out[s:s + chunk], chunk)
+                      for s in range(0, out.shape[0], chunk)])
 
 
 def phase_main_path(steps: int):
@@ -649,10 +700,7 @@ def phase_main_path(steps: int):
                    masks_foreground=float((masks > 0).float().mean().item()),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"[main] {json.dumps(summary)}", flush=True)
-    main_ref = {k: w[k].cpu() for k in ("out", "video", "masks", "traj", "rec")}
-    main_ref["probe"] = _probe_inputs(pipe, w, steps)
-    main_ref["forward"] = _forward_pair(pipe, main_ref["probe"])
-    return launches, (pipe, traj, straj, w["ctx"], masks, out), main_ref
+    return launches, (pipe, traj, straj, w["ctx"], masks, out)
 
 
 def phase_sd_fallback(sd_state, steps: int):
@@ -909,8 +957,9 @@ def _fill_motion_proj_out(unet, seed: int) -> int:
     module count."""
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
     mods = unet.motion_modules()
+    gen = torch.Generator(device=mods[0].temporal_transformer.proj_out.weight.device)
+    gen.manual_seed(seed)
     with torch.no_grad():
         for mm in mods:
             w = mm.temporal_transformer.proj_out.weight
@@ -1030,85 +1079,53 @@ SD3_VARIANTS = {  # tag: (pipeline variant, what is built)
     "sd35m": ("sd35m", "sd3.5-medium"),
     "sd35l": ("sd35", "sd3.5-large"),
 }
+# SD3.5-medium's steps: the 2-branch stylization phase only (32 run both
+# phases, +118 s on the card, which the script's time limit does not hold;
+# SD3-medium runs the stylized-only phase at the same widths)
+SD35M_STEPS = 8
 
 
 def phase_sd3(tag: str, steps: int, nf: int = 16, px: int = 1024):
     """One SD3-family model (``SD3_VARIANTS[tag]``) at full width, ``px`` px,
-    ``nf`` frames, bf16, on the card; returns the K2 / K1 launches and, for
-    the profile, ``(pipe, the content trajectory's middle latents, ctx,
-    pooled)``."""
+    ``nf`` frames, bf16, on the card, through ``_workflow_sd3``; returns the
+    K2 / K1 launches and, for the profile, ``(pipe, the content
+    trajectory's middle latents, ctx, pooled)``."""
     import torch
 
-    from univst_torch.core.adain import latent_adain_sd3
-    from univst_torch.core.config import StyleTransferConfig
-    from univst_torch.pipelines.sd3 import SD3VideoPipeline
-
     variant, label = SD3_VARIANTS[tag]
-    device, block, cap_step = "cuda", 20, 5
-    frames, style, mask0 = _load_inputs(nf, px)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    pipe = SD3VideoPipeline.build(variant=variant, num_frames=nf, dtype=torch.bfloat16,
-                                  capture_block=block, seed=0, device=device)
+    pipe = _build_sd3_pipe(variant, "bf16", nf)
     _sync()
     mcfg = pipe.mmdit.cfg
     print(f"[{tag}] built {label} ({mcfg.num_layers} blocks, {mcfg.num_heads} heads of "
           f"{mcfg.head_dim}, {len(mcfg.dual_attention_layers)} dual-attention blocks) + T5-XXL "
           f"+ CLIP-L/G (random weights, seed 0) in {time.time() - t0:.1f}s; "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
-    gen = torch.Generator(device=device).manual_seed(0)
-    stage, peak = {}, {}
-
-    def run(name, fn):
-        torch.cuda.reset_peak_memory_stats()
-        t = time.time()
-        out = fn()
-        _sync()
-        stage[name] = time.time() - t
-        peak[name] = torch.cuda.max_memory_allocated() / 1e9
-        print(f"[{tag}] {name}: {stage[name]:.2f}s, peak {peak[name]:.2f} GB", flush=True)
-        return out
-
     counters = _zero_counters()
-    t_main = time.time()
-
-    def encode_prompt():
-        out = pipe.encode_prompt("")
-        pipe.free_text_encoders()
-        return out
-
-    ctx, pooled = run("encode_prompt", encode_prompt)
-    latents = run("encode", lambda: pipe.encode_frames(frames, gen))
-    traj, feat = run("content_inversion", lambda: pipe.invert(
-        latents, ctx, pooled, num_steps=steps, is_rf_solver=True, capture_step=cap_step))
-    spipe = pipe.with_frames(1)
-    straj, _ = run("style_inversion", lambda: spipe.invert(
-        spipe.encode_frames(style, gen), ctx, pooled, num_steps=steps, is_rf_solver=True))
-    masks = run("mask_propagation", lambda: _propagate(feat, mask0, device))
-
-    def stylize():
-        content_rev = torch.flip(traj, dims=[0])
-        style_rev = torch.flip(straj, dims=[0])[:, :1]
-        init = latent_adain_sd3(content_rev[0], style_rev[0])
-        return pipe.stylize_latents(content_rev, style_rev, init, content_rev[-1],
-                                    torch.cat([ctx] * 3), torch.cat([pooled] * 3),
-                                    mask=masks.float() / 255.0,
-                                    cfg=StyleTransferConfig(num_steps=steps))
-
-    out = run("stylize", stylize)
-    video = run("decode", lambda: pipe.decode_latents_uint8(out, chunk=4))
-    rec = run("reconstruction", lambda: pipe.reconstruct_latents(
-        traj[-1], latents, ctx, pooled, num_steps=steps))
-    main_s = time.time() - t_main
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    prompt = _sd3_prompt(pipe)
+    _sync()
+    stage = {"encode_prompt": time.time() - t0}
+    peak = {"encode_prompt": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[{tag}] encode_prompt: {stage['encode_prompt']:.2f}s, "
+          f"peak {peak['encode_prompt']:.2f} GB", flush=True)
+    w = _workflow_sd3(pipe, steps, nf, px, tag, prompt)
     launches = {name: fn.launches for name, fn in counters.items()}
+    stage.update(w["stage"])
+    peak.update(w["peak"])
+    main_s = stage["encode_prompt"] + w["main_s"]
 
+    traj, masks, rec = w["traj"], w["masks"], w["rec"]
     p = mcfg.patch_size
-    if tuple(feat.shape) != (nf, latents.shape[1] // p, latents.shape[2] // p, mcfg.hidden):
-        raise AssertionError(f"captured feature {tuple(feat.shape)}")
-    psnr = _check_outputs({"context": ctx, "pooled": pooled, "trajectory": traj,
-                           "feature": feat, "style trajectory": straj,
-                           "stylized latents": out, "reconstruction": rec},
-                          masks, video, nf, px, traj[0], rec)
+    lat = w["latents"]
+    if tuple(w["feat"].shape) != (nf, lat.shape[1] // p, lat.shape[2] // p, mcfg.hidden):
+        raise AssertionError(f"captured feature {tuple(w['feat'].shape)}")
+    psnr = _check_outputs({"context": w["ctx"], "pooled": w["pooled"], "trajectory": traj,
+                           "feature": w["feat"], "style trajectory": w["straj"],
+                           "stylized latents": w["out"], "reconstruction": rec},
+                          masks, w["video"], nf, px, traj[0], rec)
     # one K2 launch per joint and per dual attention of each of the step's
     # four video forwards (two RF-Solver forwards, one reconstruction
     # forward, one 2x16- or 16-frame stylization forward)
@@ -1125,7 +1142,7 @@ def phase_sd3(tag: str, steps: int, nf: int = 16, px: int = 1024):
                    masks_foreground=float((masks > 0).float().mean().item()),
                    peak_mem_gb_by_stage=peak, peak_mem_gb=max(peak.values()))
     print(f"[{tag}] {json.dumps(summary)}", flush=True)
-    return launches, (pipe, traj[steps // 2], ctx, pooled)
+    return launches, (pipe, traj[steps // 2], w["ctx"], w["pooled"])
 
 
 def _profile_forward(name: str, model, fn, want_launches: dict) -> dict:
@@ -1208,17 +1225,34 @@ def phase_profile_sd35m(state) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH_PG_TIMEOUT_S = 300  # a hung collective raises after this
-MESH_AD_STEPS = 10  # the AnimateDiff job and its one-process reference
 # a sharded bf16 forward's relative RMS distance from the reference's fp32
 # forward, over the one-process bf16 forward's distance, at most this
 MESH_BF16_RATIO = 1.25
 MESH_JOBS = {
-    # name: backbone, dtype, px, frames, ranks
-    "sd_bf16_2": ("sd", "bf16", 512, 16, 2),
-    "sd_fp32_2": ("sd", "fp32", 256, 8, 2),
-    "sd_fp32_4": ("sd", "fp32", 256, 8, 4),
-    "ad_bf16_2": ("ad", "bf16", 512, 16, 2),
+    # name: backbone, dtype, px, frames, ranks, steps (each job against a
+    # one-card run at its steps; the bf16 jobs' steps cut from 30 (SD) and
+    # 10 (AD) to keep the script within its time limit: with its fp32 floor
+    # and stage-fed rerun, the AD job takes 175 s at 10 steps on the card)
+    "sd_bf16_2": ("sd", "bf16", 512, 16, 2, 10),
+    "sd_fp32_2": ("sd", "fp32", 256, 8, 2, 6),
+    "sd_fp32_4": ("sd", "fp32", 256, 8, 4, 6),
+    "ad_bf16_2": ("ad", "bf16", 512, 16, 2, 6),
 }
+SD3_MESH_JOBS = {
+    # name: variant, dtype, px (1024 tokens a frame: K2 runs), frames,
+    # data ranks, tensor ranks, steps (cut from 8 and 4 to keep the script
+    # within its time limit: gloo moves each all-reduce through the host)
+    "sd3m_bf16_dp2": ("sd3", "bf16", 512, 16, 2, 1, 2),
+    "sd35m_bf16_dp2tp2": ("sd35m", "bf16", 512, 8, 2, 2, 1),
+}
+SD3_CAPTURE = (20, 5)  # the feature's block and inversion step (phase_sd3's)
+# a workflow's tensors that a [mesh] comparison reads; the stage inputs a
+# stage-fed run takes from another run; the outputs of each stage
+WF_KEYS = ("latents", "slatents", "ctx", "traj", "feat", "straj", "masks", "out", "video", "rec")
+FED_INPUTS = ("latents", "slatents", "ctx", "traj", "feat", "straj", "masks", "out")
+STAGE_OUTPUTS = {"encode": ("latents", "slatents"), "content_inversion": ("traj", "feat"),
+                 "style_inversion": ("straj",), "mask_propagation": ("masks",),
+                 "stylize": ("out",), "decode": ("frames",), "reconstruction": ("rec",)}
 
 
 def _vfa_shard_case(b, nf, n, rank, h, l, dh, idx, dtype, reps=5, plant=False):
@@ -1290,10 +1324,15 @@ def _vfa_shard_case(b, nf, n, rank, h, l, dh, idx, dtype, reps=5, plant=False):
     return case
 
 
-def _vfa_tokens_shard_case(b, nf, n, rank, h, lq, l, dh, idx, dtype, lc, reps=3):
+def _vfa_tokens_shard_case(b, nf, n, rank, h, lq, l, dh, idx, dtype, lc, reps=3, plant=False):
     """K2's shard form (token-major, the context per q frame) against its
-    plain version: q of the rank's frames, k/v with the halo frames."""
+    plain version: q of the rank's frames, k/v with the halo frames; with
+    ``plant``, a slot table shifted by one frame, which the check must
+    reject. SDPA runs on the rank's own expanded ``[img*slots | ctx]``
+    K/V. At ``h`` = a tensor rank's share of the heads, the shape a
+    ``data x tensor`` rank gives K2."""
     import torch
+    import torch.nn.functional as F
 
     from univst_torch.attention.ops import shard_kv_tables
     from univst_torch.attention.video_flash import (
@@ -1320,13 +1359,37 @@ def _vfa_tokens_shard_case(b, nf, n, rank, h, lq, l, dh, idx, dtype, lc, reps=3)
     if not ratio <= 1.0:
         raise AssertionError(f"video_flash_attention_tokens shard form {tuple(q.shape)} "
                              f"Fk={fk}: kernel vs plain at {ratio:.3g}x the tolerance")
+    planted = None
+    if plant:
+        wrong = video_flash_attention_tokens(q, k, v, idx, **dict(kw, tables=((srcs + 1) % fk,
+                                                                             mult)))
+        planted = _err_over_tol(wrong, want)
+        if not planted > 1.0:
+            raise AssertionError(f"the check passed a slot table shifted by one frame "
+                                 f"({planted:.3g}x the tolerance)")
+        print(f"[kernel] planted fault (K2 slot table one frame off) rejected at "
+              f"{planted:.3g}x the tolerance", flush=True)
+        del wrong
     del want
     ms = _time_ms(lambda: video_flash_attention_tokens(q, k, v, idx, **kw), reps)
     plain_ms = _time_ms(lambda: video_flash_attention_tokens_plain(q, k, v, idx, **kw), 1)
+    ixs = torch.as_tensor(srcs, dtype=torch.long, device="cuda")
+
+    def expand(x):  # [b, Fk, L, h, dh] -> each target frame's slots: [b*f, h, S*L, dh]
+        return x[:, ixs].permute(0, 1, 4, 2, 3, 5).reshape(b * f, h, -1, dh)
+
+    def heads(x):
+        return x.reshape(b * f, x.shape[2], h, dh).transpose(1, 2)
+
+    qh = heads(q).contiguous()
+    ke = torch.cat([expand(k), heads(kw["ctx_k"])], dim=2).contiguous()
+    ve = torch.cat([expand(v), heads(kw["ctx_v"])], dim=2).contiguous()
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qh, ke, ve), reps)
+    del qh, ke, ve
     case = dict(shape=[b, f, h, lq, l, dh], indices=list(idx), dtype=str(dtype).split(".")[-1],
                 ctx=[lc, lc], shard=dict(frames=nf, ranks=n, rank=rank, fk=fk, halo=list(halo)),
-                max_abs_err=err, err_over_tol=ratio, planted_err_over_tol=None, ms=ms,
-                plain_ms=plain_ms, library_ms=None,
+                max_abs_err=err, err_over_tol=ratio, planted_err_over_tol=planted, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
                 **_bound([b, f, h, lq, l, dh], idx, lc, dtype, tables=(srcs, mult)))
     print(f"[kernel] {json.dumps(case)}", flush=True)
     return case
@@ -1344,17 +1407,17 @@ def _build_mesh_pipe(backbone: str, dtype_name: str, nf: int):
                                  seed=0, device="cuda")
 
 
-def _mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe: dict):
-    """One rank of a ``[mesh]`` job: a gloo process group over a file store,
-    every rank on ``cuda:0``; the pipeline built as the one-process phases
-    build it, replicated from rank 0 (``with_mesh``), then the workflow on
-    the rank's frames. Each rank writes its counts and times; rank 0 also
-    the gathered outputs. Nothing is caught: a failure ends the job."""
+def _rank_mesh(rank: int, n: int, out_dir: str, n_tensor: int = 1):
+    """A job rank's mesh: a gloo process group over a file store in
+    ``out_dir``, every rank on ``cuda:0``, ``n_tensor`` ranks on the tensor
+    axis; fp32 without TF32, as in the script's own process."""
     sys.path.insert(0, REPO)
     import datetime
 
     import torch
     import torch.distributed as dist
+
+    from univst_torch.distributed.mesh import make_mesh
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1362,10 +1425,23 @@ def _mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe: dic
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", rank=rank,
                             world_size=n,
                             timeout=datetime.timedelta(seconds=MESH_PG_TIMEOUT_S))
-    from univst_torch.distributed.mesh import make_mesh
+    return make_mesh(n_tensor=n_tensor, device="cuda:0")
 
-    backbone, dtype_name, px, nf, _ = MESH_JOBS[job]
-    mesh = make_mesh(device="cuda:0")
+
+def _mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe: dict):
+    """One rank of a ``[mesh]`` job: a gloo process group over a file store,
+    every rank on ``cuda:0``; the pipeline built as the one-process phases
+    build it, replicated from rank 0 (``with_mesh``), then the workflow on
+    the rank's frames, the forward pair on the reference's inputs, and each
+    stage once more on the stage inputs of the one-card run in
+    ``out_dir/fed.pt`` (``_stage_fed``). Each rank writes its counts and
+    times; rank 0 also the gathered outputs. Nothing is caught: a failure
+    ends the job."""
+    import torch
+    import torch.distributed as dist
+
+    backbone, dtype_name, px, nf, _, _ = MESH_JOBS[job]
+    mesh = _rank_mesh(rank, n, out_dir)
     t0 = time.time()
     pipe = _build_mesh_pipe(backbone, dtype_name, nf)
     _sync()
@@ -1378,12 +1454,7 @@ def _mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe: dic
     counters = _zero_counters()
     w = _workflow(pipe, backbone, steps, nf, px, f"mesh {job} r{rank}")
     launches = {name: fn.launches for name, fn in counters.items()}
-    by_op = {}
-    for c in w["census"].values():
-        for key, v in c.items():
-            s = by_op.setdefault(key.split(":")[0], dict(count=0, mb=0.0, host_ms=0.0))
-            for k in s:
-                s[k] += v[k]
+    by_op = _census_by_op(w["census"])
     stats = dict(job=job, rank=rank, ranks=n, steps=steps, build_s=build_s,
                  replicate_s=replicate_s, stage_s=w["stage"], main_path_s=w["main_s"],
                  census_by_stage=w["census"],
@@ -1396,26 +1467,36 @@ def _mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe: dic
     print(f"[mesh] {json.dumps(stats)}", flush=True)
     torch.save(stats, os.path.join(out_dir, f"stats{rank}.pt"))
     forward = _forward_pair(pipe, probe)  # on the reference's inputs
+    t0 = time.time()
+    fed = _stage_fed(pipe, backbone, steps, nf, px,
+                     torch.load(os.path.join(out_dir, "fed.pt"), weights_only=False))
+    print(f"[mesh] {job} r{rank}: stage-fed stages in {time.time() - t0:.1f}s", flush=True)
     if rank == 0:
-        result = {k: w[k].cpu() for k in ("out", "video", "masks", "traj", "rec")}
-        torch.save(dict(result, forward=forward), os.path.join(out_dir, "result.pt"))
+        result = {k: w[k].cpu() for k in WF_KEYS}
+        torch.save(dict(result, forward=forward, fed=fed), os.path.join(out_dir, "result.pt"))
     dist.barrier()
     dist.destroy_process_group()
 
 
-def _run_mesh_job(job: str, steps: int, probe: dict):
+def _run_mesh_job(job: str, steps: int, probe: dict, fed: dict):
     """Spawn the job's ranks (never fork after CUDA init) and wait; a rank
-    that raises ends the script. Returns rank 0's outputs and every rank's
-    stats."""
+    that raises ends the script. ``fed``: the one-card run whose stage
+    inputs the stage-fed checks take. Returns rank 0's outputs and every
+    rank's stats."""
     import tempfile
 
     import torch
     import torch.multiprocessing as mp
 
-    n = MESH_JOBS[job][4]
+    if job in MESH_JOBS:
+        n, target = MESH_JOBS[job][4], _mesh_rank
+    else:
+        n, target = SD3_MESH_JOBS[job][4] * SD3_MESH_JOBS[job][5], _sd3_mesh_rank
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "results")) as out_dir:
+        torch.save({k: fed[k] for k in FED_INPUTS + ("pooled",) if k in fed},
+                   os.path.join(out_dir, "fed.pt"))
         t0 = time.time()
-        mp.spawn(_mesh_rank, args=(n, out_dir, job, steps, probe), nprocs=n, join=True)
+        mp.spawn(target, args=(n, out_dir, job, steps, probe), nprocs=n, join=True)
         wall = time.time() - t0
         stats = [torch.load(os.path.join(out_dir, f"stats{r}.pt"), weights_only=False)
                  for r in range(n)]
@@ -1498,14 +1579,95 @@ def _forward_pair(pipe, probe: dict) -> dict:
     return out
 
 
-def _one_process(backbone: str, dtype_name: str, px: int, nf: int, steps: int, tag: str):
-    """A ``[mesh]`` job's one-process reference on the card, with its
-    forward pair."""
+def _one_process(backbone: str, dtype_name: str, px: int, nf: int, steps: int, tag: str,
+                 forward: bool = True, fed=None, encode_parts=()):
+    """A ``[mesh]`` job's one-process run on the card: the workflow (its
+    tensors, each stage's output on its own inputs, the decode's frames
+    before rounding), with ``forward`` its forward pair, with ``fed`` each
+    stage on another run's stage inputs (``_stage_fed``), and the encode's
+    batch-shape floor for each split in ``encode_parts``."""
+    import torch
+
     pipe = _build_mesh_pipe(backbone, dtype_name, nf)
     w = _workflow(pipe, backbone, steps, nf, px, tag)
-    out = {k: w[k].cpu() for k in ("out", "video", "masks", "traj", "rec")}
+    out = {k: w[k].cpu() for k in WF_KEYS}
+    out["frames"] = _decode_float(pipe, w["out"]).cpu()
     out["probe"] = _probe_inputs(pipe, w, steps)
-    out["forward"] = _forward_pair(pipe, out["probe"])
+    if forward:
+        out["forward"] = _forward_pair(pipe, out["probe"])
+    if fed is not None:
+        out["fed"] = _stage_fed(pipe, backbone, steps, nf, px, fed)
+    out["encode_floor"] = {parts: _encode_batch_floor(pipe, nf, px, parts)
+                           for parts in encode_parts}
+    del pipe, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def _one_card_fed(backbone: str, dtype_name: str, px: int, nf: int, steps: int, fed) -> dict:
+    """Each stage on one card in ``dtype_name``, on ``fed``'s stage inputs."""
+    import torch
+
+    pipe = _build_mesh_pipe(backbone, dtype_name, nf)
+    out = _stage_fed(pipe, backbone, steps, nf, px, fed)
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stage_fed(pipe, backbone: str, steps: int, nf: int, px: int, fed: dict) -> dict:
+    """Each stage of ``_workflow`` once more, fed the stage inputs of another
+    run (``fed``: its encoded latents, text context, trajectories, feature,
+    masks and stylized latents) instead of its own outputs, so that no
+    earlier stage's difference reaches a later one: encode (the same frames
+    and draws), content inversion, style inversion, mask propagation,
+    stylization, decode (in [0, 1], before rounding), reconstruction.
+    Returns ``STAGE_OUTPUTS``' tensors, on the host."""
+    import torch
+
+    device = pipe.device
+    frames, style, mask0 = _load_inputs(nf, px, style_frames=1 if backbone == "sd" else nf)
+    ts = pipe.schedule.timesteps(steps)
+    cap_t = 301 if 301 in ts else int(ts[len(ts) // 2])
+    gen = torch.Generator(device=device).manual_seed(0)
+    spipe = _style_pipe(pipe, backbone)
+
+    def inp(k):
+        return fed[k].to(device)
+
+    ctx = inp("ctx")
+    res = dict(latents=pipe.encode_frames(frames, gen), slatents=spipe.encode_frames(style, gen))
+    res["traj"], res["feat"] = pipe.invert(inp("latents"), ctx, num_steps=steps, is_opt=True,
+                                           capture_timestep=cap_t)
+    res["straj"] = spipe.invert(inp("slatents"), ctx, num_steps=steps, is_opt=False)[0]
+    res["masks"] = _propagate(inp("feat"), mask0, device)
+    res["out"] = _stylize(pipe, backbone, inp("traj"), inp("straj"), ctx, inp("masks"), steps)
+    res["frames"] = _decode_float(pipe, inp("out"))
+    res["rec"] = pipe.reconstruct_latents(inp("traj")[-1], ctx, num_steps=steps)
+    _sync()
+    return {k: v.cpu() for k, v in res.items()}
+
+
+def _encode_batch_floor(pipe, nf: int, px: int, parts: int) -> dict:
+    """What a change of batch shape alone does to the encode on one card:
+    the content frames encoded as ``parts`` batches of ``nf / parts``
+    frames against all ``nf`` at once, with the same noise (the encoder is
+    per frame: only the convolutions' choice of algorithm per shape
+    differs)."""
+    import torch
+
+    frames = torch.as_tensor(_load_inputs(nf, px)[0])
+    shape = pipe.encode_frames(frames[:1], noise=torch.zeros(())).shape[1:]
+    noise = torch.randn((nf,) + tuple(shape), generator=torch.Generator().manual_seed(0))
+    whole = pipe.encode_frames(frames, noise=noise).cpu()
+    k = nf // parts
+    split = torch.cat([pipe.encode_frames(frames[s:s + k], noise=noise[s:s + k]).cpu()
+                       for s in range(0, nf, k)])
+    out = dict(frames=nf, size=px, parts=parts, dtype=str(pipe.dtype).split(".")[-1],
+               rel_rms=_rel_rms(split, whole), err_over_tol32=_err_over_tol32(split, whole),
+               max_abs_diff=(split - whole).abs().max().item(),
+               bitwise_equal=bool(torch.equal(split, whole)))
+    print(f"[mesh] encode batch floor {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1540,7 +1702,57 @@ def _compare(result, ref, fp32: bool) -> dict:
     return out
 
 
-def _check_mesh(job: str, result, ref) -> dict:
+def _workflow_floor(result, ref, floor) -> dict:
+    """A bf16 job's workflow against its one-card fp32 floor (the same
+    workflow in fp32 from the same inputs): per output (final latents, the
+    inversion's last latent, the reconstruction) the sharded run's relative
+    RMS to the floor over the one-card bf16 run's (``bf16_ratio``, as the
+    forward gate reads it), and the frames' PSNR against the fp32 frames."""
+    out = {}
+    for name, pick in (("latents", lambda r: r["out"]), ("inversion", lambda r: r["traj"][-1]),
+                       ("reconstruction", lambda r: r["rec"])):
+        err, base = _rel_rms(pick(result), pick(floor)), _rel_rms(pick(ref), pick(floor))
+        out[name] = dict(sharded_vs_fp32=err, one_card_bf16_vs_fp32=base, bf16_ratio=err / base)
+    out["frame_psnr_db_min_vs_fp32"] = dict(
+        sharded=min(_psnr_frames(result["video"], floor["video"])),
+        one_card_bf16=min(_psnr_frames(ref["video"], floor["video"])))
+    return out
+
+
+def _stage_gates(got: dict, want: dict, fp32: bool, one=None) -> dict:
+    """The stage-fed outputs of a sharded run (``got``) against the one-card
+    run whose stage inputs fed it (``want``: its own stage outputs). fp32:
+    ``_err_over_tol32`` <= 1 (the JAX package's bar) on every latent and
+    frame (the captured feature is reported: the bar is not an
+    activation's). bf16 (``want`` the
+    fp32 floor, ``one`` the one-card bf16 pipeline fed the same inputs):
+    the sharded output's relative RMS to ``want`` over ``one``'s, at most
+    ``MESH_BF16_RATIO``. Masks (the same feature on every rank): equal on
+    >= 99.5% of the pixels. Each row carries ``ok``."""
+    rows = {}
+    for stage, keys in STAGE_OUTPUTS.items():
+        for k in keys:
+            g, w = got[k], want[k]
+            if k == "masks":
+                eq = (g == (want if fp32 else one)[k]).float().mean().item()
+                row = dict(masks_equal=eq, ok=eq >= 0.995)
+            elif fp32:
+                # the JAX bar is a latent's (unit scale); the captured UNet
+                # activation is reported, and its consumer, the masks, gated
+                e = _err_over_tol32(g, w)
+                row = dict(err_over_tol32=e, rel_rms=_rel_rms(g, w), gated=k != "feat",
+                           ok=e <= 1.0 or k == "feat")
+            else:
+                err, base = _rel_rms(g, w), _rel_rms(one[k], w)
+                ratio = err / base if base > 0 else (0.0 if err == 0 else float("inf"))
+                row = dict(rel_rms_vs_fp32=err, one_card_bf16_rel_rms_vs_fp32=base,
+                           bf16_ratio=ratio, rel_rms_vs_one_card_bf16=_rel_rms(g, one[k]),
+                           ok=ratio <= MESH_BF16_RATIO)
+            rows[f"{stage}:{k}"] = row
+    return rows
+
+
+def _check_mesh(job: str, result, ref, fed_ref, one_fed=None, floor=None) -> dict:
     """A sharded job against its one-process reference.
 
     Gated (a sharding fault fails here): the two forwards at the middle
@@ -1549,13 +1761,16 @@ def _check_mesh(job: str, result, ref) -> dict:
     and, for a bf16 job, in bf16: the sharded forward's relative RMS
     distance from the reference's fp32 forward at most ``MESH_BF16_RATIO``
     times the reference's own bf16 forward's (a wrong halo frame or
-    exchange is far outside bf16 rounding); the workflow's outputs finite,
-    and its masks equal on >= 99.5% of the pixels. Reported: the bf16
-    forwards' relative RMS against the reference's bf16 forwards, and the
-    workflow bars of ``_compare`` (their misses: ROADMAP queue 3)."""
+    exchange is far outside bf16 rounding); each stage on the one-card
+    run's own inputs to it (``_stage_gates``: the fp32 reference's for an
+    fp32 job, the fp32 floor's for a bf16 job); the workflow's outputs
+    finite, and its masks equal on >= 99.5% of the pixels. Reported: the
+    bf16 forwards' relative RMS against the reference's bf16 forwards, the
+    workflow bars of ``_compare`` (their misses: ROADMAP queue 3) and, for a
+    bf16 job, the workflow against its fp32 floor (``_workflow_floor``)."""
     import torch
 
-    fp32 = MESH_JOBS[job][1] == "fp32"
+    fp32 = (MESH_JOBS[job] if job in MESH_JOBS else SD3_MESH_JOBS[job])[1] == "fp32"
     fwd = {}
     got, want = result["forward"], ref["forward"]
     for name in ("inversion", "injected"):
@@ -1567,8 +1782,13 @@ def _check_mesh(job: str, result, ref) -> dict:
                              bf16_vs_fp32_rel_rms=err, ref_bf16_vs_fp32_rel_rms=ref_err,
                              bf16_ratio=err / ref_err)
     wf = _compare(result, ref, fp32)
+    stages = _stage_gates(result["fed"], fed_ref, fp32, one_fed)
     out = dict(job=job, forward=fwd, workflow=wf)
+    if floor is not None:
+        out["workflow_floor"] = _workflow_floor(result, ref, floor)
     print(f"[mesh] {json.dumps(out)}", flush=True)
+    print(f"[mesh] stage-fed {job}: {json.dumps(stages)}", flush=True)
+    out["stage_fed"] = stages
     if not wf["bars_met"]:
         print(f"[mesh] MISS {job}: the workflow bars are not met (ROADMAP queue 3)",
               flush=True)
@@ -1579,15 +1799,19 @@ def _check_mesh(job: str, result, ref) -> dict:
                  for v in fwd.values())
     if not (ok_fwd and wf["masks_equal"] >= 0.995):
         raise AssertionError(f"[mesh] {job} misses its one-process reference: {out}")
+    missed = [k for k, row in stages.items() if not row["ok"]]
+    if missed:
+        raise AssertionError(f"[mesh] {job}: stage-fed checks missed at {missed}")
     return out
 
 
-def phase_mesh(main_ref, steps: int):
+def phase_mesh():
     """Frame parallelism on the one card: K1's shard form (three shapes, a
-    planted slot-table fault) and K2's, then the SD-1.5 workflow in bf16 at
-    full width over 2 ranks against ``[main]``, in fp32 at 256 px over 2 and
-    4 ranks against a one-process fp32 run, and AnimateDiff-v2 in bf16 at
-    full width over 2 ranks against a one-process run at the same steps.
+    planted slot-table fault) and K2's (also at a tensor rank's share of
+    the heads, with a planted slot-table fault), then the ``MESH_JOBS``:
+    the SD-1.5 workflow in bf16 at full width over 2 ranks, in fp32 at 256
+    px over 2 and 4 ranks, and AnimateDiff-v2 in bf16 at full width over 2
+    ranks, each against a one-card run at the same steps (``_mesh_jobs``).
     The ranks time-slice the card over gloo (which stages every collective
     through host memory): the times are not a speed measurement."""
     import torch
@@ -1599,34 +1823,341 @@ def phase_mesh(main_ref, steps: int):
         _vfa_shard_case(2, 16, 4, 2, 8, 4096, 40, (-1, 0, "first"), bf),
         _vfa_shard_case(2, 16, 2, 1, 8, 1024, 80, (-1, 0, "first"), bf),
     ]
-    k2 = [_vfa_tokens_shard_case(1, 16, 2, 1, 24, 4429, 4096, 64, ("first", -1, 0), bf, 333)]
+    sd3 = ("first", -1, 0)
+    k2 = [_vfa_tokens_shard_case(1, 16, 2, 1, 24, 4429, 4096, 64, sd3, bf, 333),
+          # a data x tensor rank: data rank 1 of 2, its tensor share of the
+          # heads (SD3-M / SD3.5-M: 12 of 24; SD3.5-L: 19 of 38 at tensor=2)
+          _vfa_tokens_shard_case(1, 16, 2, 1, 12, 4429, 4096, 64, sd3, bf, 333, plant=True),
+          _vfa_tokens_shard_case(1, 16, 2, 1, 19, 4429, 4096, 64, sd3, bf, 333)]
     torch.cuda.empty_cache()
+    return _mesh_jobs(), k1, k2
+
+
+def _mesh_jobs() -> dict:
+    """The ``[mesh]`` jobs of ``MESH_JOBS`` with their one-card runs; returns
+    the kernel launches of the sharded workflows, summed over ranks.
+
+    A bf16 job's one-card runs: its floor (the workflow in fp32 from the
+    same inputs), whose stage inputs feed the stage-fed checks, and the
+    workflow in bf16 (the reference of the sharded run), whose pipeline
+    also runs each stage on the floor's stage inputs. The fp32 jobs share
+    one one-card fp32 run, whose own stage inputs feed their checks, with
+    the encode's batch-shape floor beside it."""
     os.makedirs(os.path.join(REPO, "results"), exist_ok=True)
-
     launches = {"video_flash_attention": 0, "video_flash_attention_tokens": 0}
-
-    def run(job, job_steps, ref):
-        result, stats = _run_mesh_job(job, job_steps, ref["probe"])
-        backbone, _, px, nf, n = MESH_JOBS[job]
-        forwards = 3 * job_steps  # inversion, reconstruction, stylization: one a step
+    refs = {}
+    for job, (backbone, dtype_name, px, nf, n, steps) in MESH_JOBS.items():
+        t0 = time.time()
+        if dtype_name == "bf16":
+            floor = _one_process(backbone, "fp32", px, nf, steps, f"mesh {job} fp32 floor",
+                                 forward=False, encode_parts=(2,) if backbone == "sd" else ())
+            ref = _one_process(backbone, "bf16", px, nf, steps, f"mesh {job} one card",
+                               fed=floor)
+            fed_ref, one_fed = floor, ref["fed"]
+        else:
+            key = (backbone, px, nf, steps)
+            if key not in refs:
+                refs[key] = _one_process(backbone, "fp32", px, nf, steps, f"mesh {job} one card",
+                                         encode_parts=(2, 4))
+            ref = fed_ref = refs[key]
+            floor = one_fed = None
+        result, stats = _run_mesh_job(job, steps, ref["probe"], fed_ref)
+        forwards = 3 * steps  # inversion, reconstruction, stylization: one a step
         per_forward = 0 if backbone == "ad" else (10 if px == 512 else 5)
         for st in stats:
             _check_launches(st["launches"], {"video_flash_attention": per_forward * forwards,
                                              "video_flash_attention_tokens": 0})
             for name in launches:
                 launches[name] += st["launches"][name]
-        return _check_mesh(job, result, ref)
+        _check_mesh(job, result, ref, fed_ref, one_fed, floor)
+        print(f"[mesh] {job}: one-card runs, job and checks in {time.time() - t0:.1f}s",
+              flush=True)
+    return launches
 
-    run("sd_bf16_2", steps, main_ref)
-    fp32_steps = 6
-    ref = _one_process("sd", "fp32", 256, 8, fp32_steps, "mesh sd_fp32_1")
+
+def _build_sd3_pipe(variant: str, dtype_name: str, nf: int):
+    import torch
+
+    from univst_torch.pipelines.sd3 import SD3VideoPipeline
+
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    return SD3VideoPipeline.build(variant=variant, num_frames=nf, dtype=dtype,
+                                  capture_block=SD3_CAPTURE[0], seed=0, device="cuda")
+
+
+def _sd3_prompt(pipe):
+    """The empty prompt's (context, pooled), then the text encoders freed
+    (T5-XXL: 9.5 GB in bf16)."""
+    out = pipe.encode_prompt("")
+    pipe.free_text_encoders()
+    return out
+
+
+def _stylize_sd3(pipe, traj, straj, ctx, pooled, masks, steps: int):
+    """The SD3 workflow's stylization (``phase_sd3``'s): from the per-frame
+    AdaIN-shifted content noise, the singleton style, the mask."""
+    import torch
+
+    from univst_torch.core.adain import latent_adain_sd3
+    from univst_torch.core.config import StyleTransferConfig
+
+    content_rev = torch.flip(traj, dims=[0])
+    style_rev = torch.flip(straj, dims=[0])[:, :1]
+    init = latent_adain_sd3(content_rev[0], style_rev[0])
+    return pipe.stylize_latents(content_rev, style_rev, init, content_rev[-1],
+                                torch.cat([ctx] * 3), torch.cat([pooled] * 3),
+                                mask=masks.float() / 255.0,
+                                cfg=StyleTransferConfig(num_steps=steps))
+
+
+def _workflow_sd3(pipe, steps: int, nf: int, px: int, tag: str, prompt) -> dict:
+    """The SD3 workflow after the prompt (``prompt``: its context and pooled
+    embedding) on the demo corpus: VAE encode, RF-Solver content inversion
+    with the block-20 feature captured at step 5 (the last step of a
+    shorter run), single-frame style inversion, mask propagation,
+    stylization, chunked decode, reconstruction; with each stage's seconds,
+    peak device memory and, under a mesh, collectives; the tensors under
+    ``_workflow``'s names (``ctx`` and ``pooled`` the prompt's)."""
+    import torch
+
+    from univst_torch.distributed.census import collect_collectives, summarize
+
+    device = pipe.device
+    frames, style, mask0 = _load_inputs(nf, px)
+    gen = torch.Generator(device=device).manual_seed(0)
+    ctx, pooled = prompt
+    cap = min(SD3_CAPTURE[1], steps - 1)
+    stage, peak, census = {}, {}, {}
+
+    def run(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        with collect_collectives() as recs:
+            out = fn()
+            _sync()
+        stage[name] = time.time() - t
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+        census[name] = summarize(recs, by_site=True)
+        print(f"[{tag}] {name}: {stage[name]:.2f}s, peak {peak[name]:.2f} GB", flush=True)
+        return out
+
+    t_main = time.time()
+    latents = run("encode", lambda: pipe.encode_frames(frames, gen))
+    traj, feat = run("content_inversion", lambda: pipe.invert(
+        latents, ctx, pooled, num_steps=steps, is_rf_solver=True, capture_step=cap))
+    spipe = pipe.with_frames(1)
+
+    def style_inversion():
+        slat = spipe.encode_frames(style, gen)
+        return slat, spipe.invert(slat, ctx, pooled, num_steps=steps, is_rf_solver=True)[0]
+
+    slatents, straj = run("style_inversion", style_inversion)
+    masks = run("mask_propagation", lambda: _propagate(feat, mask0, device))
+    out = run("stylize", lambda: _stylize_sd3(pipe, traj, straj, ctx, pooled, masks, steps))
+    video = run("decode", lambda: pipe.decode_latents_uint8(out, chunk=4))
+    rec = run("reconstruction", lambda: pipe.reconstruct_latents(
+        traj[-1], latents, ctx, pooled, num_steps=steps))
+    return dict(latents=latents, slatents=slatents, ctx=ctx, pooled=pooled, traj=traj,
+                feat=feat, straj=straj, masks=masks, out=out, video=video, rec=rec,
+                stage=stage, peak=peak, census=census, main_s=time.time() - t_main)
+
+
+def _stage_fed_sd3(pipe, steps: int, nf: int, px: int, fed: dict) -> dict:
+    """``_stage_fed`` for the SD3 workflow (``_workflow_sd3``'s stages)."""
+    import torch
+
+    device = pipe.device
+    frames, style, mask0 = _load_inputs(nf, px)
+    gen = torch.Generator(device=device).manual_seed(0)
+    spipe = pipe.with_frames(1)
+
+    def inp(k):
+        return fed[k].to(device)
+
+    ctx, pooled = inp("ctx"), inp("pooled")
+    res = dict(latents=pipe.encode_frames(frames, gen), slatents=spipe.encode_frames(style, gen))
+    res["traj"], res["feat"] = pipe.invert(inp("latents"), ctx, pooled, num_steps=steps,
+                                           is_rf_solver=True,
+                                           capture_step=min(SD3_CAPTURE[1], steps - 1))
+    res["straj"] = spipe.invert(inp("slatents"), ctx, pooled, num_steps=steps,
+                                is_rf_solver=True)[0]
+    res["masks"] = _propagate(inp("feat"), mask0, device)
+    res["out"] = _stylize_sd3(pipe, inp("traj"), inp("straj"), ctx, pooled, inp("masks"), steps)
+    res["frames"] = pipe.decode_latents(inp("out"), chunk=4)
+    res["rec"] = pipe.reconstruct_latents(inp("traj")[-1], inp("latents"), ctx, pooled,
+                                          num_steps=steps)
+    _sync()
+    return {k: v.cpu() for k, v in res.items()}
+
+
+def _probe_sd3(pipe, w: dict, steps: int) -> dict:
+    """``_probe_inputs`` for SD3: the content latents and the style latent
+    at the middle step, the prompt, the step and its flow time."""
+    i = steps // 2
+    mu = pipe._mu(*w["latents"].shape[1:3])
+    sigma = float(pipe.schedule.sigmas(steps, mu=mu)[i])
+    return dict(i=i, t=sigma * pipe.schedule.cfg.num_train_timesteps, z=w["traj"][i].cpu(),
+                sty=w["straj"][i].cpu(), ctx=w["ctx"].cpu(), pooled=w["pooled"].cpu())
+
+
+def _forward_pair_sd3(pipe, probe: dict) -> dict:
+    """``_forward_pair`` for SD3: two MMDiT forwards on the same inputs, the
+    inversion's (B = 1) and the injected 2-branch stylization forward, the
+    style K/V captured by the single-frame forward of the style latent (as
+    ``_stylize2_segment`` runs them); in the pipeline's type and, for a bf16
+    pipeline, with the MMDiT in fp32 (``*_fp32``; back in bf16 after, bit
+    for bit). Under a mesh each runs on the rank's frames and its tensor
+    share of the heads; the velocities come back gathered, on the host."""
+    import torch
+
+    from univst_torch.core.config import SD3_STYLE_SHIFT
+    from univst_torch.distributed.mesh import gather_frames
+    from univst_torch.models.layers import StyleCtx, VideoCtx
+    from univst_torch.models.mmdit import extract_mmdit_style_kv
+
+    i, t = probe["i"], probe["t"]
+    dev = pipe.device
+    ctx, pooled = probe["ctx"].to(dev), probe["pooled"].to(dev)
+    z, sty = pipe._shard(probe["z"].to(dev)), probe["sty"].to(dev)
+    shard = pipe._frame_shard()
+
+    def whole(x):
+        x = x.reshape((-1, z.shape[0]) + x.shape[1:])
+        return (x if shard is None else gather_frames(x, pipe.mesh, axis=1)).float().cpu()
+
+    def pair(p):
+        with torch.inference_mode():
+            v1 = p._denoise_fn(ctx, pooled, None)(z, t, i)[0]
+            cap = StyleCtx(step_idx=i, cfg=SD3_STYLE_SHIFT, capture=True)
+            c1, p1 = p._cast(ctx, pooled)
+            p.mmdit(sty.to(p.dtype), t, c1, p1, VideoCtx(num_frames=1, frame_indices=()), cap)
+            sctx = StyleCtx(step_idx=i, cfg=SD3_STYLE_SHIFT,
+                            style_kv=extract_mmdit_style_kv(cap.captured))
+            c2, p2 = p._cast(torch.cat([ctx, ctx]), torch.cat([pooled, pooled]))
+            v2, _ = p.mmdit(torch.cat([z, z]).to(p.dtype), t, c2, p2, p._video_ctx(), sctx)
+        _sync()
+        return whole(v1), whole(v2)
+
+    out = dict(zip(("inversion", "injected"), pair(pipe)))
+    if pipe.dtype != torch.float32:
+        pipe.mmdit.float()
+        out.update(zip(("inversion_fp32", "injected_fp32"),
+                       pair(dataclasses.replace(pipe, dtype=torch.float32))))
+        pipe.mmdit.to(pipe.dtype)
+    return out
+
+
+def _one_process_sd3(variant: str, dtype_name: str, px: int, nf: int, steps: int, tag: str,
+                     forward: bool = True, fed=None) -> dict:
+    """``_one_process`` for an SD3 job."""
+    import torch
+
+    pipe = _build_sd3_pipe(variant, dtype_name, nf)
+    w = _workflow_sd3(pipe, steps, nf, px, tag, _sd3_prompt(pipe))
+    out = {k: w[k].cpu() for k in WF_KEYS + ("pooled",)}
+    out["frames"] = pipe.decode_latents(w["out"], chunk=4).cpu()
+    out["probe"] = _probe_sd3(pipe, w, steps)
+    if forward:
+        out["forward"] = _forward_pair_sd3(pipe, out["probe"])
+    if fed is not None:
+        out["fed"] = _stage_fed_sd3(pipe, steps, nf, px, fed)
+    del pipe, w
     torch.cuda.empty_cache()
-    run("sd_fp32_2", fp32_steps, ref)
-    run("sd_fp32_4", fp32_steps, ref)
-    ref = _one_process("ad", "bf16", 512, 16, MESH_AD_STEPS, "mesh ad_bf16_1")
-    torch.cuda.empty_cache()
-    run("ad_bf16_2", MESH_AD_STEPS, ref)
-    return launches, k1, k2
+    return out
+
+
+def _sd3_mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe: dict):
+    """One rank of an SD3 ``[mesh]`` job (``SD3_MESH_JOBS``): as
+    ``_mesh_rank``, on a ``data x tensor`` mesh. The ranks build one at a
+    time, each encoding the prompt and freeing its text encoders before the
+    next builds (four T5-XXL copies would not fit beside the rest), then
+    ``with_mesh`` replicates the MMDiT and the VAE and splits the MMDiT
+    over the tensor axis. Gated here: the K2 launches of the workflow."""
+    import torch
+    import torch.distributed as dist
+
+    variant, dtype_name, px, nf, _, n_tensor, _ = SD3_MESH_JOBS[job]
+    mesh = _rank_mesh(rank, n, out_dir, n_tensor)
+    build_s = 0.0
+    for turn in range(n):
+        if turn == rank:
+            t0 = time.time()
+            pipe = _build_sd3_pipe(variant, dtype_name, nf)
+            prompt = _sd3_prompt(pipe)
+            _sync()
+            build_s = time.time() - t0
+        dist.barrier()
+    t0 = time.time()
+    pipe = pipe.with_mesh(mesh)
+    _sync()
+    replicate_s = time.time() - t0
+    counters = _zero_counters()
+    w = _workflow_sd3(pipe, steps, nf, px, f"mesh {job} r{rank}", prompt)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    cfg = pipe.mmdit.cfg
+    per_forward = cfg.num_layers + len(cfg.dual_attention_layers)
+    _check_launches(launches, {"video_flash_attention": 0,
+                               "video_flash_attention_tokens": per_forward * 4 * steps})
+    by_op = _census_by_op(w["census"])
+    stats = dict(job=job, rank=rank, ranks=n, data_rank=mesh.data_rank,
+                 tensor_rank=mesh.tensor_rank, steps=steps, build_s=build_s,
+                 replicate_s=replicate_s, stage_s=w["stage"], main_path_s=w["main_s"],
+                 census_by_stage=w["census"],
+                 # RF-Solver: two forwards a step
+                 census_per_inversion_forward={
+                     key: dict(count=c["count"] / (2 * steps), mb=c["mb"] / (2 * steps))
+                     for key, c in w["census"]["content_inversion"].items()
+                     if not key.endswith(":outputs") and not key.startswith("broadcast")},
+                 collectives_by_op=by_op, k2_launches_per_forward=per_forward,
+                 peak_mem_gb_by_stage=w["peak"], peak_mem_gb=max(w["peak"].values()),
+                 launches=launches)
+    print(f"[mesh] {json.dumps(stats)}", flush=True)
+    torch.save(stats, os.path.join(out_dir, f"stats{rank}.pt"))
+    forward = _forward_pair_sd3(pipe, probe)
+    t0 = time.time()
+    fed = _stage_fed_sd3(pipe, steps, nf, px,
+                         torch.load(os.path.join(out_dir, "fed.pt"), weights_only=False))
+    print(f"[mesh] {job} r{rank}: stage-fed stages in {time.time() - t0:.1f}s", flush=True)
+    if rank == 0:
+        result = {k: w[k].cpu() for k in WF_KEYS}
+        torch.save(dict(result, forward=forward, fed=fed), os.path.join(out_dir, "result.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _census_by_op(census_by_stage: dict) -> dict:
+    """A workflow's collectives summed over its stages and sites, by op."""
+    by_op = {}
+    for c in census_by_stage.values():
+        for key, v in c.items():
+            s = by_op.setdefault(key.split(":")[0], dict(count=0, mb=0.0, host_ms=0.0))
+            for k in s:
+                s[k] += v[k]
+    return by_op
+
+
+def phase_mesh_sd3() -> dict:
+    """SD3 on a ``data x tensor`` mesh of gloo ranks sharing the card
+    (``SD3_MESH_JOBS``): SD3-medium over 2 data ranks and SD3.5-medium over
+    2 x 2, bf16 at 512 px, each with its one-card bf16 run and fp32 floor,
+    gated as the ``[mesh]`` jobs are (``_check_mesh``). Returns the K2
+    launches of the sharded workflows, summed over ranks."""
+    launches = {"video_flash_attention": 0, "video_flash_attention_tokens": 0}
+    for job, (variant, _, px, nf, _, _, steps) in SD3_MESH_JOBS.items():
+        t0 = time.time()
+        floor = _one_process_sd3(variant, "fp32", px, nf, steps, f"mesh {job} fp32 floor",
+                                 forward=False)
+        ref = _one_process_sd3(variant, "bf16", px, nf, steps, f"mesh {job} one card",
+                               fed=floor)
+        print(f"[mesh] {job}: floor and one-card runs in {time.time() - t0:.1f}s", flush=True)
+        result, stats = _run_mesh_job(job, steps, ref["probe"], floor)
+        for st in stats:
+            for name in launches:
+                launches[name] += st["launches"][name]
+        _check_mesh(job, result, ref, floor, ref["fed"], floor)
+        print(f"[mesh] {job}: one-card runs, job and checks in {time.time() - t0:.1f}s",
+              flush=True)
+    return launches
 
 
 def _entry(name, replaces, launches, cases, main_case):
@@ -1646,7 +2177,7 @@ def main(argv=None) -> int:
     p.add_argument("--ad_steps", type=int, default=30,
                    help="AnimateDiff steps (>= 26: both phases)")
     p.add_argument("--sd3_steps", type=int, default=32,
-                   help="SD3-medium and SD3.5-medium steps (>= 32: both phases)")
+                   help="SD3-medium steps (>= 32: both phases)")
     p.add_argument("--sd35l_steps", type=int, default=8,
                    help="SD3.5-large steps (>= 32: both phases; 8 runs the 2-branch phase)")
     args = p.parse_args(argv)
@@ -1671,7 +2202,7 @@ def main(argv=None) -> int:
     smi = phase_device()
     phase_build()
     cases, tokens = phase_kernels()
-    sd_launches, sd_state, main_ref = phase_main_path(args.steps)
+    sd_launches, sd_state = phase_main_path(args.steps)
     fallback_launches = phase_sd_fallback(sd_state, args.steps)
     phase_sd_linear_betas(sd_state, args.steps)
     phase_lk_shift()
@@ -1686,19 +2217,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     sd3_launches = {"sd3": phase_sd3("sd3", args.sd3_steps)[0]}
     torch.cuda.empty_cache()
-    sd3_launches["sd35m"], sd35m_state = phase_sd3("sd35m", args.sd3_steps)
+    sd3_launches["sd35m"], sd35m_state = phase_sd3("sd35m", SD35M_STEPS)
     for k, v in phase_profile_sd35m(sd35m_state).items():
         profile_launches[k] += v
     del sd35m_state
     torch.cuda.empty_cache()
     sd3_launches["sd35l"], _ = phase_sd3("sd35l", args.sd35l_steps)
     torch.cuda.empty_cache()
-    mesh_launches, shard_cases, shard_tokens = phase_mesh(main_ref, args.steps)
+    mesh_launches, shard_cases, shard_tokens = phase_mesh()
+    torch.cuda.empty_cache()
+    mesh_sd3_launches = phase_mesh_sd3()
 
     k1_paths = {"sd": sd_launches, "sd_fallback": fallback_launches, "smooth": smooth_launches,
                 "profile": profile_launches, "mesh": mesh_launches}
     k1_paths = {k: v["video_flash_attention"] for k, v in k1_paths.items()}
-    k2_paths = dict(sd3_launches, profile=profile_launches, mesh=mesh_launches)
+    k2_paths = dict(sd3_launches, profile=profile_launches, mesh=mesh_launches,
+                    mesh_sd3=mesh_sd3_launches)
     k2_paths = {k: v["video_flash_attention_tokens"] for k, v in k2_paths.items()}
     entries = [
         dict(_entry("video_flash_attention", TPU_KERNEL, sum(k1_paths.values()),

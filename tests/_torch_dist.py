@@ -31,7 +31,7 @@ PG_TIMEOUT_S = 90  # a collective that waits longer raises
 JOIN_S = 180  # the whole multi-process case
 
 
-def _entry(fn, rank, n, outdir, args):
+def _entry(fn, rank, n, outdir, args, n_tensor=1):
     torch.set_num_threads(1)
     try:
         import torch.distributed as dist
@@ -40,7 +40,7 @@ def _entry(fn, rank, n, outdir, args):
 
         dist.init_process_group("gloo", init_method=f"file://{outdir}/store", rank=rank,
                                 world_size=n, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
-        out = fn(make_mesh(device="cpu"), *args)
+        out = fn(make_mesh(n_tensor=n_tensor, device="cpu"), *args)
         torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
         dist.destroy_process_group()
     except BaseException:
@@ -49,13 +49,15 @@ def _entry(fn, rank, n, outdir, args):
         raise SystemExit(1)
 
 
-def run_ranks(fn, n: int, tmp_path, *args, timeout: float = JOIN_S):
-    """``fn(mesh, *args)`` on ``n`` gloo ranks; returns the list of their
+def run_ranks(fn, n: int, tmp_path, *args, timeout: float = JOIN_S, mesh_tensor: int = 1):
+    """``fn(mesh, *args)`` on ``n`` gloo ranks, a mesh of ``n / mesh_tensor``
+    data ranks by ``mesh_tensor`` tensor ranks; returns the list of their
     results (rank order)."""
     outdir = str(tmp_path)
     os.makedirs(outdir, exist_ok=True)
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_entry, args=(fn, r, n, outdir, args)) for r in range(n)]
+    procs = [ctx.Process(target=_entry, args=(fn, r, n, outdir, args, mesh_tensor))
+             for r in range(n)]
     for p in procs:
         p.start()
     deadline = time.time() + timeout
@@ -300,3 +302,80 @@ def workflow(mesh, argv):
 
 def noise(seed: int, *shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def mmdit_forward(mesh, state, cfg_kw: dict, x, ctx, pooled, t: float, shift_step=None):
+    """The tiny MMDiT (``MMDiTConfig.tiny(**cfg_kw)``, rank 0's weights
+    ``state``, replicated, then split over the tensor axis) on this data
+    rank's frames of each video of ``x`` [B, F, h, w, C] with
+    ``SD3_FRAME_INDICES`` (``shift_step``: the 3-branch stylization forward
+    at that step, ``SD3_STYLE_SHIFT``'s AdaIN shift on): the gathered
+    velocity, the collective census, the collectives a ``torch.profiler``
+    trace saw, by op, the head counts the q/k RMS norms saw and those the
+    AdaIN shift saw, call by call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from univst_torch.attention import ops
+    from univst_torch.core.config import SD3_FRAME_INDICES, SD3_STYLE_SHIFT
+    from univst_torch.distributed.census import collect_collectives, profiler_ops
+    from univst_torch.distributed.comm import FrameShard
+    from univst_torch.distributed.mesh import gather_frames, replicate, shard_frames
+    from univst_torch.distributed.tp import shard_mmdit
+    from univst_torch.models.layers import StyleCtx, VideoCtx
+    from univst_torch.models.mmdit import MMDiT, MMDiTConfig, RMSNorm
+
+    model = MMDiT(MMDiTConfig.tiny(**cfg_kw)).eval()
+    if mesh.rank == 0:
+        model.load_state_dict(state, strict=True)
+    shard_mmdit(replicate(model, mesh), mesh)
+    b, f = x.shape[:2]
+    shard = FrameShard.of(mesh, f) if mesh.n_data > 1 else None
+    vctx = VideoCtx(num_frames=f if shard is None else shard.local,
+                    frame_indices=SD3_FRAME_INDICES, shard=shard)
+    sctx = None if shift_step is None else StyleCtx(step_idx=shift_step, cfg=SD3_STYLE_SHIFT)
+    heads = []
+    for m in model.modules():
+        if isinstance(m, RMSNorm):
+            m.register_forward_hook(lambda mod, args, out: heads.append(args[0].shape[-2]))
+    adain, adain_heads = ops.attention_adain_sd3_tm, []
+
+    def counted_adain(cnt, sty):
+        adain_heads.append(cnt.shape[-2])
+        return adain(cnt, sty)
+
+    ops.attention_adain_sd3_tm = counted_adain
+    xs = shard_frames(torch.tensor(x), mesh, axis=1)
+    try:
+        with torch.inference_mode(), collect_collectives() as recs, \
+                profile(activities=[ProfilerActivity.CPU]) as prof:
+            v, _ = model(xs.reshape((-1,) + xs.shape[2:]), t,
+                         torch.tensor(ctx).expand(b, -1, -1),
+                         torch.tensor(pooled).expand(b, -1), vctx, sctx)
+    finally:
+        ops.attention_adain_sd3_tm = adain
+    v = gather_frames(v.reshape(xs.shape), mesh, axis=1)
+    return v, recs, profiler_ops(prof), sorted(set(heads)), adain_heads
+
+
+def sd3_pipeline(mesh, states, num_frames: int, steps: int, inputs: dict, shift: dict):
+    """The tiny SD3 pipeline (rank 0's weights ``states`` for the MMDiT, VAE,
+    CLIP-L, CLIP-G and T5) under ``mesh``: ``stylize_latents`` (singleton,
+    both phases, mask) and ``invert`` (RF-Inversion) on the prompt ''."""
+    from univst_torch.core.config import StyleShiftConfig, StyleTransferConfig
+    from univst_torch.pipelines.sd3 import SD3VideoPipeline
+
+    pipe = SD3VideoPipeline.build(variant="tiny", num_frames=num_frames, dtype=torch.float32,
+                                  device="cpu")
+    if states is not None and (mesh is None or mesh.rank == 0):
+        for module, sd in zip((pipe.mmdit, pipe.vae, pipe.clip_l, pipe.clip_g, pipe.t5),
+                              states):
+            module.load_state_dict(sd, strict=True)
+    pipe = pipe.with_mesh(mesh)
+    ctx, pooled = pipe.encode_prompt("")
+    out = pipe.stylize_latents(
+        torch.tensor(inputs["content"]), torch.tensor(inputs["style"]),
+        torch.tensor(inputs["init"]), torch.tensor(inputs["img"]), torch.cat([ctx] * 3),
+        torch.cat([pooled] * 3), mask=torch.tensor(inputs["mask"]),
+        cfg=StyleTransferConfig(num_steps=steps), style_cfg=StyleShiftConfig(**shift))
+    traj, _ = pipe.invert(torch.tensor(inputs["init"]), ctx, pooled, num_steps=steps)
+    return out, traj

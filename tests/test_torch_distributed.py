@@ -33,7 +33,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # -- the mesh ---------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("spec", [None, "", "4", "data=4", "data=2,tensor=1", "data=8"])
+@pytest.mark.parametrize("spec", [None, "", "4", "data=4", "data=2,tensor=1", "data=8",
+                                  "data=2,tensor=2", "data=4,tensor=2"])
 def test_parse_mesh_axes_follows_the_jax_grammar(spec):
     from univst_tpu.distributed.mesh import parse_mesh_spec as j_parse
     from univst_torch.distributed.mesh import parse_mesh_axes
@@ -57,19 +58,23 @@ def test_unknown_mesh_axis_raises_in_both_packages(spec):
 
 
 def test_mesh_spec_refusals(monkeypatch):
-    """``tensor>1`` is the next slice; ``data`` and ``hosts`` must match the
-    ranks torchrun started; a host with more ranks than cards is refused."""
+    """``data`` x ``tensor`` and ``hosts`` must match the ranks torchrun
+    started; the tensor axis must stay within a host; a host with more
+    ranks than cards is refused."""
     from univst_torch.distributed import mesh
 
-    with pytest.raises(ValueError, match="next slice"):
-        mesh.parse_mesh_axes("data=2,tensor=2")
+    assert mesh.parse_mesh_axes("data=2,tensor=2") == (2, 2, None)
     for k, v in dict(WORLD_SIZE="4", LOCAL_WORLD_SIZE="2", RANK="0", LOCAL_RANK="0",
                      MASTER_ADDR="localhost", MASTER_PORT="1").items():
         monkeypatch.setenv(k, v)
     with pytest.raises(ValueError, match="needs 2 ranks"):
         mesh.parse_mesh_spec("data=2")
+    with pytest.raises(ValueError, match="needs 8 ranks"):
+        mesh.parse_mesh_spec("data=4,tensor=2")
     with pytest.raises(ValueError, match="hosts=3"):
         mesh.parse_mesh_spec("data=4,hosts=3")
+    with pytest.raises(ValueError, match="tensor=4 must divide the 2 ranks of one host"):
+        mesh.parse_mesh_spec("data=1,tensor=4")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="one rank per card"):
@@ -382,12 +387,59 @@ def test_workflow_cli_on_a_mesh_writes_the_one_process_tree(tmp_path):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--backbone", "sd3", "--mesh", "data=2"], "next slice"),
-    (["--mesh", "data=2,tensor=2"], "next slice"),
+    (["--backbone", "sd3", "--mesh", "data=2,tensor=4"], "does not divide the MMDiT's 2 heads"),
+    (["--mesh", "data=2,tensor=2"], "needs 4 ranks"),
 ])
 def test_workflow_cli_mesh_refusals(extra, match, tmp_path):
+    """What ``--mesh`` still refuses: an SD3 tensor axis that does not
+    divide the MMDiT's heads (the tiny variant's 2), and a mesh larger than
+    the ranks torchrun started (one process here; SD and AnimateDiff take
+    a tensor axis, replicated over it)."""
     from univst_torch.cli import run_workflow
 
     with pytest.raises(SystemExit, match=match):
         run_workflow.main(run_workflow.build_parser().parse_args(
             _workflow_argv(tmp_path) + extra))
+
+
+def _sd3_argv(root, *extra):
+    """The tiny SD3 workflow: 4 frames, the feature of block 1 at step 1 (a
+    step index on SD3)."""
+    argv = _workflow_argv(root, "--ft_indices", "1", *extra)
+    for flag, value in (("--backbone", "sd3"), ("--ft_timesteps", "1"), ("--num_frames", "4")):
+        argv[argv.index(flag) + 1] = value
+    return argv
+
+
+@pytest.mark.parametrize("backbone, spec", [("sd3", "data=2,tensor=2"), ("sd", "data=2,tensor=2")])
+def test_workflow_cli_on_a_data_tensor_mesh_writes_the_one_process_tree(backbone, spec,
+                                                                         tmp_path):
+    """``run_workflow --mesh data=2,tensor=2`` on four gloo ranks: SD3 with
+    its MMDiT split over the tensor axis, SD replicated over it; rank 0
+    writes the one-process tree (masks equal, fp16 trajectories and
+    features to fp16 rounding, frames within one level)."""
+    from PIL import Image
+
+    from univst_torch.cli import run_workflow
+
+    argv = _sd3_argv if backbone == "sd3" else _workflow_argv
+    one, two = tmp_path / "one", tmp_path / "mesh"
+    run_workflow.main(run_workflow.build_parser().parse_args(argv(one)))
+    td.run_ranks(td.workflow, 4, tmp_path / "ranks", argv(two, "--mesh", spec), mesh_tensor=2)
+    files = sorted(p.relative_to(one) for p in one.rglob("*") if p.is_file())
+    assert files == sorted(p.relative_to(two) for p in two.rglob("*") if p.is_file())
+    kinds = set()
+    for rel in files:
+        if rel.suffix == ".pt":
+            a, b = (torch.load(d / rel, weights_only=True).float() for d in (one, two))
+            assert rel_err(b, a) < 2e-3, rel
+            kinds.add("pt")
+        elif rel.suffix == ".png":
+            a, b = (np.asarray(Image.open(d / rel)).astype(int) for d in (one, two))
+            if "masks" in rel.parts:
+                np.testing.assert_array_equal(a, b)
+                kinds.add("mask")
+            else:
+                assert np.abs(a - b).max() <= 1, rel
+                kinds.add("frame")
+    assert kinds == {"pt", "mask", "frame"}

@@ -43,7 +43,7 @@ def test_every_module_imports_without_jax():
     assert {"univst_torch.utils.profiling", "univst_torch.utils.flops",
             "univst_torch.models.lora", "univst_torch.models.sparse_controlnet",
             "univst_torch.distributed.mesh", "univst_torch.distributed.comm",
-            "univst_torch.distributed.census"} <= set(mods)
+            "univst_torch.distributed.census", "univst_torch.distributed.tp"} <= set(mods)
     code = ("import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

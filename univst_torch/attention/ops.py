@@ -290,7 +290,8 @@ def mha(q, k, v, num_heads: int, scale: Optional[float] = None):
 
 
 def joint_video_attention_tokens(q, k, v, num_frames: int, frame_indices: Sequence[FrameIndex],
-                                 cq=None, ck=None, cv=None, scale: Optional[float] = None):
+                                 cq=None, ck=None, cv=None, scale: Optional[float] = None,
+                                 shard=None):
     """SD3/MMDiT joint attention with sparse-causal video K/V on token-major
     per-head tensors ``[B*F, L, H, dh]`` (a free view of the projection
     output ``[B*F, L, H*dh]``), plus optional context streams
@@ -309,12 +310,27 @@ def joint_video_attention_tokens(q, k, v, num_frames: int, frame_indices: Sequen
     and the short sequences) the head-major expand + concat path runs, with
     PyTorch's fused attention.
 
+    With ``shard`` (a ``comm.FrameShard``) the tensors hold this rank's
+    ``F = shard.local`` frames: the index set is resolved in global frame
+    numbers and the image K/V of the sources on other ranks (frame 0 and
+    the frame before the shard for ``SD3_FRAME_INDICES``) arrive through
+    one ``comm.frame_halo`` over the data group; K2 reads the extended K/V
+    of ``Fk = F + halo`` frames through explicit slot tables
+    (:func:`shard_kv_tables`), and the expanded path gathers from the same
+    extended K/V. The context K/V is per frame and crosses no rank.
+
     Returns ``[B*F, L(+Lc), H, dh]`` (context rows appended when ``cq`` is
     given).
     """
     bf, n, nh, dh = q.shape
     f = num_frames
     has_ctx = cq is not None
+    tables = None
+    if frame_indices and shard is not None:
+        kv, srcs, mult = extend_kv(torch.cat([k, v]).reshape(2 * (bf // f), f, n, nh, dh),
+                                   shard, frame_indices)
+        k, v = kv.chunk(2)  # [B, Fk, L, H, dh]
+        tables = (srcs, mult)
     if q.device.type == "cuda" and frame_indices and n >= 1024 and n % 128 == 0 and bf % f == 0:
         from univst_torch.attention.video_flash import video_flash_attention_tokens
 
@@ -322,20 +338,30 @@ def joint_video_attention_tokens(q, k, v, num_frames: int, frame_indices: Sequen
         dt = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
 
         def r5(x):
-            return x.reshape(b, f, x.shape[1], nh, dh).to(dt).contiguous()
+            return x.reshape(b, -1, x.shape[-3], nh, dh).to(dt).contiguous()
 
         qj = torch.cat([q, cq], dim=1) if has_ctx else q
         ctx_kw = dict(ctx_k=r5(ck), ctx_v=r5(cv), ctx_valid=ck.shape[1]) if has_ctx else {}
         out = video_flash_attention_tokens(
             r5(qj), r5(k), r5(v), tuple(frame_indices),
-            sm_scale=float(dh**-0.5 if scale is None else scale), **ctx_kw)
+            sm_scale=float(dh**-0.5 if scale is None else scale), tables=tables, **ctx_kw)
         return out.reshape(bf, qj.shape[1], nh, dh).to(q.dtype)
 
     def hm(x):
         return x.transpose(1, 2)
 
-    kx = cross_frame_kv_heads(hm(k), f, frame_indices)
-    vx = cross_frame_kv_heads(hm(v), f, frame_indices)
+    if tables is not None:
+        # each target frame's slots from the extended K/V, slot-major as
+        # cross_frame_kv_heads lays them: [B*F, H, S*L, dh]
+        ixs = torch.as_tensor(tables[0], dtype=torch.long, device=q.device)
+
+        def expand(x):
+            return x[:, ixs].permute(0, 1, 4, 2, 3, 5).reshape(bf, nh, -1, dh)
+
+        kx, vx = expand(k), expand(v)
+    else:
+        kx = cross_frame_kv_heads(hm(k), f, frame_indices)
+        vx = cross_frame_kv_heads(hm(v), f, frame_indices)
     qh = hm(q)
     if has_ctx:
         qh = torch.cat([qh, hm(cq)], dim=2)

@@ -2,9 +2,11 @@
 
 Flags and output trees match ``univst_tpu.cli`` (common.py:55,70). The
 device is CUDA unless ``--platform cpu`` asks for the CPU. ``--mesh
-data=N`` runs the SD and AnimateDiff stages frame-parallel over the N ranks
-``torchrun`` started (NCCL, one rank per card; gloo on the CPU); rank 0
-writes the output tree, the other ranks write nothing.
+data=N[,tensor=M]`` runs the stages over the N x M ranks ``torchrun``
+started (NCCL, one rank per card; gloo on the CPU): frame-parallel over
+``data``, and for SD3 the MMDiT's linears split over ``tensor`` (SD and
+AnimateDiff replicate over it, as the JAX package does); rank 0 writes the
+output tree, the other ranks write nothing.
 """
 
 from __future__ import annotations
@@ -15,8 +17,6 @@ from typing import Optional
 import numpy as np
 
 NOT_PORTED = "is not ported to the PyTorch package yet (it runs in univst_tpu)"
-SD3_MESH_NOT_PORTED = ("--mesh with --backbone sd3 is not ported yet (SD3 frame parallelism "
-                       "and tensor parallelism: next slice)")
 
 
 def setup_device(platform: Optional[str] = None):
@@ -82,19 +82,23 @@ def load_feature_pt(path: str) -> np.ndarray:
 
 
 def check_backbone(args) -> None:
-    """The port runs the SD, AnimateDiff and SD3 backbones on one device,
-    and SD and AnimateDiff frame-parallel (``--mesh data=N``); ``--mesh``
-    with SD3, or with ``tensor=M > 1``, raises."""
+    """The port runs the SD, AnimateDiff and SD3 backbones, on one device or
+    over ``--mesh``; a malformed ``--mesh``, or a tensor axis that does not
+    divide the SD3 MMDiT's heads, exits with the reason."""
     if getattr(args, "backbone", "sd") not in (None, "sd", "animatediff", "sd3"):
         raise SystemExit(f"--backbone {args.backbone} {NOT_PORTED}")
     spec = getattr(args, "mesh", None)
     if spec:
         from univst_torch.distributed.mesh import parse_mesh_axes
 
-        if getattr(args, "backbone", "sd") == "sd3":
-            raise SystemExit(SD3_MESH_NOT_PORTED)
         try:
-            parse_mesh_axes(spec)
+            axes = parse_mesh_axes(spec)
+            if getattr(args, "backbone", "sd") == "sd3" and axes.n_tensor > 1:
+                from univst_torch.distributed.tp import check_heads
+                from univst_torch.pipelines.sd3 import _configs
+
+                mcfg = _configs(getattr(args, "variant", None) or "sd3", None)[0]
+                check_heads(mcfg.num_heads, axes.n_tensor)
         except ValueError as e:
             raise SystemExit(f"--mesh {spec}: {e}") from e
 
@@ -108,7 +112,10 @@ def setup_mesh(args):
         return None
     from univst_torch.distributed.mesh import parse_mesh_spec
 
-    return parse_mesh_spec(spec, device="cpu" if args.platform == "cpu" else None)
+    try:
+        return parse_mesh_spec(spec, device="cpu" if args.platform == "cpu" else None)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {spec}: {e}") from e
 
 
 def is_writer(mesh) -> bool:
@@ -157,8 +164,8 @@ def build_pipeline_from_args(args, capture_up_block=None, num_frames=None):
 
 def add_mesh_flag(parser):
     parser.add_argument("--mesh", type=str, default=None,
-                        help="frame-parallel mesh over the torchrun ranks, 'data=N' (or 'N'); "
-                             "SD and AnimateDiff only")
+                        help="mesh over the torchrun ranks, 'data=N[,tensor=M][,hosts=H]' (or "
+                             "'N'): frames over data, the SD3 MMDiT's linears over tensor")
     return parser
 
 

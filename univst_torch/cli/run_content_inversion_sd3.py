@@ -5,7 +5,9 @@ RF-Inversion (default) or RF-Solver (``--is_rf_solver``) over the MMDiT; the
 trajectory is written in the reference format (``[F, C, H, W]`` fp16 per
 step: SD3 batches frames), the block feature is captured for mask
 propagation, and the controlled-velocity reconstruction is decoded as the
-correctness oracle. Runs on CUDA unless ``--platform cpu``.
+correctness oracle. Runs on CUDA unless ``--platform cpu``; under
+``torchrun`` with ``--mesh data=N[,tensor=M]`` over a dp x tp mesh (rank 0
+writes).
 """
 
 from __future__ import annotations
@@ -14,17 +16,23 @@ import argparse
 import os
 
 from univst_torch.cli.common import (
-    add_mesh_flag, check_backbone, generator_for, make_output_tree, parse_dtype,
-    save_feature_pt, setup_device,
+    add_mesh_flag, generator_for, is_writer, make_output_tree, parse_dtype, save_feature_pt,
+    setup_device, setup_mesh,
 )
 from univst_torch.utils.io import load_video, save_video, seed_everything
 
+# frames a VAE decode takes at once: the decoder mixes no frames, and a
+# 16-frame decode at 1024 px does not fit beside SD3.5-large on an 80 GB card
+DECODE_CHUNK = 4
+
 
 def build_sd3_pipeline(args, capture_block=None, num_frames=None):
-    """Construct the SD3 pipeline from the shared CLI flags."""
+    """Construct the SD3 pipeline from the shared CLI flags, on the
+    ``--mesh`` of the torchrun ranks when one is given
+    (``univst_tpu/cli/run_content_inversion_sd3.py:35,93``)."""
     from univst_torch.pipelines.sd3 import SD3VideoPipeline
 
-    check_backbone(args)
+    mesh = setup_mesh(args)
     return SD3VideoPipeline.build(
         pretrained_model_path=args.pretrained_model_path,
         variant=args.variant,
@@ -32,8 +40,8 @@ def build_sd3_pipeline(args, capture_block=None, num_frames=None):
         dtype=parse_dtype(args.weight_dtype),
         capture_block=capture_block,
         seed=args.seed or 0,
-        device=setup_device(args.platform),
-    )
+        device=setup_device(args.platform) if mesh is None else mesh.device,
+    ).with_mesh(mesh)
 
 
 def main(args):
@@ -44,27 +52,31 @@ def main(args):
 
     pipe = build_sd3_pipeline(args, capture_block=args.ft_indices)
     name = os.path.basename(os.path.normpath(args.content_path)).split(".")[0]
-    paths = make_output_tree(args.output_path, args.backbone, name)
+    writer = is_writer(pipe.mesh)
+    paths = make_output_tree(args.output_path, args.backbone, name, create=writer)
 
+    # prompts are encoded once; the text encoders (T5-XXL: 9.5 GB) go before
+    # the VAE encode, whose activations peak at 1024 px
+    context, pooled = pipe.encode_prompt("")
+    pipe.free_text_encoders()
     frames = load_video(args.content_path, args.num_frames, (args.width, args.height))
     latents = pipe.encode_frames(frames, generator_for(pipe.device, args.seed or 0))
-    context, pooled = pipe.encode_prompt("")
-    # prompts are encoded once; the text encoders (T5-XXL: 9.5 GB) go first
-    pipe.free_text_encoders()
 
     print("inversion:")
     traj, feat = pipe.invert(latents, context, pooled, num_steps=args.time_steps,
                              is_rf_solver=args.is_rf_solver, capture_step=args.ft_timesteps)
-    save_trajectory(traj, paths["inversion"], reference_rank=4)
-    if feat is not None:
+    if writer:
+        save_trajectory(traj, paths["inversion"], reference_rank=4)
+    if feat is not None and writer:
         save_feature_pt(feat, paths["features"], args.ft_indices, args.ft_timesteps)
 
     print("reconstruction:")
     lat0 = pipe.reconstruct_latents(traj[-1], latents, context, pooled,
                                     num_steps=args.time_steps, eta_base=0.85,
                                     eta_trend="constant", start_step=25, end_step=39)
-    video = pipe.decode_latents(lat0).cpu().numpy()
-    save_video(video, os.path.join(paths["reconstruction"], "content_video.mp4"), fps=8)
+    video = pipe.decode_latents(lat0, chunk=DECODE_CHUNK).cpu().numpy()
+    if writer:
+        save_video(video, os.path.join(paths["reconstruction"], "content_video.mp4"), fps=8)
     print(f"done -> {paths['base']}")
 
 

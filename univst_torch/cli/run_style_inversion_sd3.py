@@ -5,7 +5,9 @@ The style image repeated over frames makes every frame of the inversion
 identical (the MMDiT has no per-frame state and attends frame 0 and its
 neighbours, all equal), so it runs on a single frame and the trajectory is
 tiled back to num_frames on save, in the reference's ``[F, C, H, W]``
-``ddim_latents_{i}.pt`` layout. Runs on CUDA unless ``--platform cpu``."""
+``ddim_latents_{i}.pt`` layout. Runs on CUDA unless ``--platform cpu``;
+under ``--mesh`` every data rank runs the frame on its tensor share of the
+MMDiT (rank 0 writes)."""
 
 from __future__ import annotations
 
@@ -14,9 +16,7 @@ import os
 
 import numpy as np
 
-from univst_torch.cli.common import (
-    add_mesh_flag, check_backbone, generator_for, make_output_tree,
-)
+from univst_torch.cli.common import add_mesh_flag, generator_for, is_writer, make_output_tree
 from univst_torch.cli.run_content_inversion_sd3 import build_sd3_pipeline
 from univst_torch.utils.io import load_style_image, save_video, seed_everything
 
@@ -24,31 +24,34 @@ from univst_torch.utils.io import load_style_image, save_video, seed_everything
 def main(args):
     from univst_torch.core.trajectory import save_trajectory
 
-    check_backbone(args)
     if args.seed is not None:
         seed_everything(args.seed)
 
     num_frames_out = args.num_frames
     pipe = build_sd3_pipeline(args, num_frames=1)  # invert one frame
     name = os.path.basename(args.style_path).split(".")[0]
-    paths = make_output_tree(args.output_path, args.backbone, name)
+    writer = is_writer(pipe.mesh)
+    paths = make_output_tree(args.output_path, args.backbone, name, create=writer)
 
-    frames = load_style_image(args.style_path, 1, (args.width, args.height))
-    latents = pipe.encode_frames(frames, generator_for(pipe.device, args.seed or 0))
     context, pooled = pipe.encode_prompt("")
     pipe.free_text_encoders()
+    frames = load_style_image(args.style_path, 1, (args.width, args.height))
+    latents = pipe.encode_frames(frames, generator_for(pipe.device, args.seed or 0))
 
     print("inversion:")
     traj, _ = pipe.invert(latents, context, pooled, num_steps=args.time_steps,
                           is_rf_solver=args.is_rf_solver)
-    save_trajectory(traj.repeat(1, num_frames_out, 1, 1, 1), paths["inversion"], reference_rank=4)
+    if writer:
+        save_trajectory(traj.repeat(1, num_frames_out, 1, 1, 1), paths["inversion"],
+                        reference_rank=4)
 
     print("reconstruction:")
     lat0 = pipe.reconstruct_latents(traj[-1], latents, context, pooled,
                                     num_steps=args.time_steps, eta_base=0.85,
                                     eta_trend="constant", start_step=25, end_step=39)
     video = np.tile(pipe.decode_latents(lat0).cpu().numpy(), (num_frames_out, 1, 1, 1))
-    save_video(video, os.path.join(paths["reconstruction"], "style_video.mp4"), fps=8)
+    if writer:
+        save_video(video, os.path.join(paths["reconstruction"], "style_video.mp4"), fps=8)
     print(f"done -> {paths['base']}")
 
 

@@ -6,15 +6,17 @@ for the controlled-velocity pull, AdaIN-shifts the initial latents per
 frame, runs the flow stylization (style-singleton 2-branch phase, or the
 3-branch batch for a style trajectory whose frames differ, then the
 stylized-only phase) and writes per-frame PNGs to
-{out}/sd3/{content}_{style}/. Runs on CUDA unless ``--platform cpu``."""
+{out}/sd3/{content}_{style}/. Runs on CUDA unless ``--platform cpu``;
+under ``torchrun`` with ``--mesh data=N[,tensor=M]`` over a dp x tp mesh
+(rank 0 writes)."""
 
 from __future__ import annotations
 
 import argparse
 import os
 
-from univst_torch.cli.common import add_mesh_flag, singleton_style_or_fallback
-from univst_torch.cli.run_content_inversion_sd3 import build_sd3_pipeline
+from univst_torch.cli.common import add_mesh_flag, is_writer, singleton_style_or_fallback
+from univst_torch.cli.run_content_inversion_sd3 import DECODE_CHUNK, build_sd3_pipeline
 from univst_torch.utils.io import load_mask, save_frames, seed_everything
 
 
@@ -51,12 +53,13 @@ def main(args):
         torch.cat([pooled] * 3), mask=mask,
         cfg=StyleTransferConfig(num_steps=args.time_steps),
     )
-    frames = pipe.decode_latents_uint8(out).cpu().numpy()
+    frames = pipe.decode_latents_uint8(out, chunk=DECODE_CHUNK).cpu().numpy()
 
     content_name = os.path.normpath(args.content_inv_path).split(os.sep)[-2]
     style_name = os.path.normpath(args.style_inv_path).split(os.sep)[-2]
     out_dir = os.path.join(args.output_path, args.backbone, f"{content_name}_{style_name}")
-    save_frames(frames, out_dir)
+    if is_writer(pipe.mesh):
+        save_frames(frames, out_dir)
     print(f"done -> {out_dir}")
 
 

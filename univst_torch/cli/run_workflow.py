@@ -7,11 +7,13 @@ in one Python process. Each stage reuses the stage CLI's own parser and
 ``main`` with the argv scripts/start_*.sh would pass, so flags and output
 layouts are those of the separate stage CLIs. Runs on CUDA unless
 ``--platform cpu``; the SD, AnimateDiff and SD3 backbones are ported.
-``--mesh data=N`` runs the SD and AnimateDiff stages frame-parallel over
-the N ranks ``torchrun`` started (NCCL, one rank per card): every rank runs
-every stage, rank 0 alone writes the tree (and propagates the masks), and
-the ranks meet after each stage. ``--mesh`` with ``--backbone sd3`` or
-``tensor=M > 1`` raises.
+``--mesh data=N[,tensor=M]`` runs the stages over the N x M ranks
+``torchrun`` started (NCCL, one rank per card): frame-parallel over
+``data``; for SD3 the MMDiT's linears split over ``tensor`` (SD and
+AnimateDiff replicate over it). Every rank runs every stage, rank 0 alone
+writes the tree (and propagates the masks), and the ranks meet after each
+stage. A tensor axis that does not divide the SD3 MMDiT's heads exits with
+the reason.
 
 Usage:
   python -m univst_torch.cli.run_workflow --backbone sd \
@@ -20,6 +22,8 @@ Usage:
       --mask_path examples/masks/demo-fly.png [--output_root results]
   torchrun --nproc_per_node 4 -m univst_torch.cli.run_workflow --backbone sd \
       --mesh data=4 ...
+  torchrun --nproc_per_node 4 -m univst_torch.cli.run_workflow --backbone sd3 \
+      --mesh data=2,tensor=2 ...
 """
 
 from __future__ import annotations
@@ -150,7 +154,8 @@ def main(args):
             "--flow": args.flow,
         })
     if is_writer(mesh):
-        where = "one process" if mesh is None else f"{mesh.n_data} ranks"
+        where = ("one process" if mesh is None
+                 else f"{mesh.n_data} x {mesh.n_tensor} ranks (data x tensor)")
         print(f"[workflow] total ({args.backbone}, {where}): {time.time() - t_all:.1f}s")
 
 
@@ -174,7 +179,8 @@ def build_parser():
     p.add_argument("--weight_dtype", type=str, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--mesh", type=str, default=None,
-                   help="frame-parallel mesh over the torchrun ranks, 'data=N' (SD, AnimateDiff)")
+                   help="mesh over the torchrun ranks, 'data=N[,tensor=M]': frames over data, "
+                        "the SD3 MMDiT's linears over tensor")
     p.add_argument("--smoother", type=str, default=None)
     p.add_argument("--flow", type=str, default=None)
     p.add_argument("--motion_module_path", type=str, default=None)

@@ -7,7 +7,10 @@ records ``(op, payload_bytes, site, host_seconds)``. :func:`collect_collectives`
 census over a block of code, :func:`summarize` sums it by op, and
 :func:`profiler_collectives` counts the collectives a ``torch.profiler``
 trace saw (the ``nccl:*`` / ``gloo:*`` ranges PyTorch's process groups
-emit), a cross-check that no collective bypassed the comm layer.
+emit), and :func:`profiler_ops` sums them by the census' op names
+(``all_gather``, ``all_to_all``, ``broadcast``, ``all_reduce``: the names
+after the backend's prefix), a cross-check, op by op, that no collective
+bypassed the comm layer.
 """
 
 from __future__ import annotations
@@ -52,3 +55,13 @@ def profiler_collectives(prof) -> Counter:
     ``nccl:<op>`` or ``gloo:<op>`` ranges (one per collective call)."""
     return Counter(e.name for e in prof.events()
                    if e.name.startswith(("nccl:", "gloo:")))
+
+
+def profiler_ops(prof) -> Counter:
+    """:func:`profiler_collectives` by op, the backend prefix dropped: the
+    census' op names (``Counter(op for op, *_ in records)`` of the same
+    block, when no collective bypassed ``distributed.comm``)."""
+    out: Counter = Counter()
+    for name, n in profiler_collectives(prof).items():
+        out[name.split(":", 1)[1]] += n
+    return out

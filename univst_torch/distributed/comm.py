@@ -14,7 +14,15 @@ here each is one call of this module:
   * :func:`ulysses_to_tokens` / :func:`ulysses_to_frames`: the all-to-all
     pair that swaps the sharded frame axis onto the token axis and back;
   * :func:`all_gather_cat`, :func:`broadcast_`: whole-tensor gathers (the
-    outputs) and replication (weights, inputs).
+    outputs) and replication (weights, inputs);
+  * :func:`all_reduce_`: the sum over the tensor axis after a row-parallel
+    linear (:mod:`univst_torch.distributed.tp`), staged through fp32.
+
+The frame collectives run over the mesh's ``data_group``, whose ranks are
+the data ranks (so a frame's owner, :meth:`FrameShard.owner`, is the
+group-local rank the all-to-all splits address; on a ``tensor=M`` mesh each
+of the M data groups exchanges among the ranks of one tensor rank); the
+all-reduce over the ``tensor_group``; a broadcast over the whole mesh.
 
 The backend decides how tensors travel: NCCL takes device tensors; gloo,
 which has no CUDA all-to-all, takes CPU tensors, so under gloo every
@@ -60,6 +68,8 @@ class FrameShard:
         return self.num_frames // self.mesh.n_data
 
     def owner(self, frame: int) -> int:
+        """The data rank that holds ``frame``: the rank of the data group
+        (the ranks of this rank's tensor rank) that the exchanges address."""
         return frame // self.local
 
     @classmethod
@@ -76,11 +86,11 @@ def _staged(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
 
 
 def all_gather_cat(x: torch.Tensor, mesh: Mesh, dim: int, site: str) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    """Every data rank's ``x`` concatenated along ``dim`` in data-rank order."""
     t0 = time.perf_counter()
     xs = _staged(mesh, x)
     parts = [torch.empty_like(xs) for _ in range(mesh.n_data)]
-    dist.all_gather(parts, xs, group=mesh.group)
+    dist.all_gather(parts, xs, group=mesh.data_group)
     out = torch.cat(parts, dim=dim).to(x.device)
     _record("all_gather", xs.numel() * xs.element_size() * (mesh.n_data - 1), site,
             time.perf_counter() - t0)
@@ -88,7 +98,7 @@ def all_gather_cat(x: torch.Tensor, mesh: Mesh, dim: int, site: str) -> torch.Te
 
 
 def broadcast_(x: torch.Tensor, mesh: Mesh, site: str) -> torch.Tensor:
-    """Rank 0's ``x`` into every rank's ``x`` (in place)."""
+    """Rank 0's ``x`` into every rank's ``x``, both axes (in place)."""
     t0 = time.perf_counter()
     xs = _staged(mesh, x)
     dist.broadcast(xs, src=0 if mesh.group is None else dist.get_global_rank(mesh.group, 0),
@@ -99,10 +109,28 @@ def broadcast_(x: torch.Tensor, mesh: Mesh, site: str) -> torch.Tensor:
     return x
 
 
+def all_reduce_(x: torch.Tensor, mesh: Mesh, site: str) -> torch.Tensor:
+    """The sum of every tensor rank's ``x`` into ``x`` (in place), over the
+    tensor group. The sum runs in fp32 and is cast back once, so gloo and
+    NCCL add alike and the sum itself adds no bf16 rounding (the partial
+    sums it takes were rounded by the caller). ``payload_bytes``: the fp32
+    partial sums of the other tensor ranks."""
+    t0 = time.perf_counter()
+    xs = x.float() if x.dtype != torch.float32 else x.contiguous()
+    xs = xs.cpu() if mesh.backend == "gloo" and xs.device.type != "cpu" else xs
+    dist.all_reduce(xs, group=mesh.tensor_group)
+    if xs.data_ptr() != x.data_ptr():
+        x.copy_(xs)
+    _record("all_reduce", xs.numel() * xs.element_size() * (mesh.n_tensor - 1), site,
+            time.perf_counter() - t0)
+    return x
+
+
 def _exchange(sends: Sequence[torch.Tensor], recv_counts: Sequence[int], mesh: Mesh,
               site: str) -> torch.Tensor:
-    """One all-to-all along dim 0: ``sends[j]`` goes to rank j, and rank i's
-    ``recv_counts[i]`` rows arrive, concatenated in rank order."""
+    """One all-to-all over the data group along dim 0: ``sends[j]`` goes to
+    data rank j, and data rank i's ``recv_counts[i]`` rows arrive,
+    concatenated in rank order."""
     t0 = time.perf_counter()
     ref = sends[0]
     send = _staged(mesh, torch.cat(list(sends)))
@@ -110,7 +138,7 @@ def _exchange(sends: Sequence[torch.Tensor], recv_counts: Sequence[int], mesh: M
     recv = torch.empty((sum(recv_counts),) + rest, dtype=send.dtype, device=send.device)
     dist.all_to_all_single(recv, send, output_split_sizes=list(recv_counts),
                            input_split_sizes=[int(s.shape[0]) for s in sends],
-                           group=mesh.group)
+                           group=mesh.data_group)
     out = recv.to(ref.device)
     row = recv.element_size()
     for s in rest:

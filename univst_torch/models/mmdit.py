@@ -175,8 +175,8 @@ class GeluMLP(nn.Module):
 
 
 def _video_indices(video_ctx: VideoCtx):
-    return (tuple(video_ctx.frame_indices)
-            if video_ctx.is_video and video_ctx.frame_indices else ())
+    video = video_ctx.is_video or video_ctx.shard is not None
+    return tuple(video_ctx.frame_indices) if video and video_ctx.frame_indices else ()
 
 
 def _style(q, k, v, style_ctx: Optional[StyleCtx], kind: str, slot: int, num_frames: int):
@@ -198,12 +198,18 @@ def _style(q, k, v, style_ctx: Optional[StyleCtx], kind: str, slot: int, num_fra
 
 
 class JointAttention(nn.Module):
-    """Joint attention over image + context tokens with video semantics."""
+    """Joint attention over image + context tokens with video semantics.
+    ``num_heads`` is the heads this module computes: all of them, or a
+    tensor rank's share once ``distributed.tp.shard_mmdit`` split its
+    projections. Under a frame shard (``video_ctx.shard``) the image K/V
+    of the source frames on other ranks arrive through the halo
+    exchange of ``joint_video_attention_tokens``."""
 
     def __init__(self, cfg: MMDiTConfig, context_pre_only: bool, slot: int):
         super().__init__()
         d = cfg.hidden
         self.cfg, self.context_pre_only, self.slot = cfg, context_pre_only, slot
+        self.num_heads = cfg.num_heads
         for name in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj"):
             setattr(self, name, nn.Linear(d, d))
         self.to_out = nn.ModuleList([nn.Linear(d, d)])
@@ -215,12 +221,13 @@ class JointAttention(nn.Module):
 
     def forward(self, x, ctx, video_ctx: VideoCtx, style_ctx: Optional[StyleCtx]):
         c = self.cfg
-        bf, n, d = x.shape
+        bf, n, _ = x.shape
+        d = self.num_heads * c.head_dim
 
         # token-major per-head layout [bf, L, H, dh]: a free view of the
         # projection output; the video kernel takes it without a transpose
         def split(y):
-            return y.reshape(bf, -1, c.num_heads, c.head_dim)
+            return y.reshape(bf, -1, self.num_heads, c.head_dim)
 
         q, k, v = split(self.to_q(x)), split(self.to_k(x)), split(self.to_v(x))
         if c.qk_norm == "rms":
@@ -233,7 +240,7 @@ class JointAttention(nn.Module):
         # joint attention over [img*slots | ctx] (sd3 pnp_utils.py:53-84)
         idx = _video_indices(video_ctx)
         out = joint_video_attention_tokens(q, k, v, video_ctx.num_frames if idx else 1, idx,
-                                           cq=cq, ck=ck, cv=cv)
+                                           cq=cq, ck=ck, cv=cv, shard=video_ctx.shard)
         out = out.reshape(bf, -1, d)
         x_out = self.to_out[0](out[:, :n])
         if self.context_pre_only:
@@ -251,6 +258,7 @@ class DualSelfAttention(nn.Module):
         super().__init__()
         d = cfg.hidden
         self.cfg, self.slot = cfg, slot
+        self.num_heads = cfg.num_heads  # as JointAttention's
         for name in ("to_q", "to_k", "to_v"):
             setattr(self, name, nn.Linear(d, d))
         self.to_out = nn.ModuleList([nn.Linear(d, d)])
@@ -259,18 +267,19 @@ class DualSelfAttention(nn.Module):
 
     def forward(self, x, video_ctx: VideoCtx, style_ctx: Optional[StyleCtx]):
         c = self.cfg
-        bf, _, d = x.shape
+        bf = x.shape[0]
 
         def split(y):
-            return y.reshape(bf, -1, c.num_heads, c.head_dim)
+            return y.reshape(bf, -1, self.num_heads, c.head_dim)
 
         q, k, v = split(self.to_q(x)), split(self.to_k(x)), split(self.to_v(x))
         if c.qk_norm == "rms":
             q, k = self.norm_q(q), self.norm_k(k)
         q, k, v = _style(q, k, v, style_ctx, "dual", self.slot, video_ctx.num_frames)
         idx = _video_indices(video_ctx)
-        out = joint_video_attention_tokens(q, k, v, video_ctx.num_frames if idx else 1, idx)
-        return self.to_out[0](out.reshape(bf, -1, d))
+        out = joint_video_attention_tokens(q, k, v, video_ctx.num_frames if idx else 1, idx,
+                                           shard=video_ctx.shard)
+        return self.to_out[0](out.reshape(bf, -1, self.num_heads * c.head_dim))
 
 
 class JointBlock(nn.Module):

@@ -84,8 +84,40 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> None:
             p.zero_()
 
 
+class FrameParallel:
+    """The frame-axis plumbing a pipeline runs under a mesh (``with_mesh``);
+    the pipeline has ``mesh``, ``gather``, ``num_frames`` and ``device``.
+    Serves the SD / AnimateDiff and the SD3 pipelines."""
+
+    def _frame_shard(self, num_frames: Optional[int] = None) -> Optional[FrameShard]:
+        """This rank's share of a ``num_frames`` clip (default the
+        pipeline's), or None: no data axis, or a count it does not divide."""
+        nf = self.num_frames if num_frames is None else num_frames
+        if self.mesh is None or self.mesh.n_data == 1 or nf % self.mesh.n_data:
+            return None
+        return FrameShard.of(self.mesh, nf)
+
+    def _shard(self, x, axis: int = 0, num_frames: Optional[int] = None):
+        """The rank's slice of a whole-clip input's frame axis; an input that
+        is already a shard, or whose axis is not the clip's (a single style
+        frame), passes."""
+        nf = self.num_frames if num_frames is None else num_frames
+        if x is None or self._frame_shard(nf) is None or x.shape[axis] != nf:
+            return x
+        return shard_input(self.mesh, torch.as_tensor(x), axis)
+
+    def _replicated(self, x):
+        """Rank 0's ``x`` on every rank, on the pipeline's device."""
+        return replicate_input(self.mesh, None if x is None else x.to(self.device))
+
+    def _gather(self, x, shard: Optional[FrameShard], axis: int = 0):
+        if shard is None or not self.gather or x is None:
+            return x
+        return gather_frames(x, self.mesh, axis, site="outputs")
+
+
 @dataclasses.dataclass
-class SDVideoPipeline:
+class SDVideoPipeline(FrameParallel):
     """Also serves AnimateDiff (``pipelines/animatediff.py::build_animatediff``):
     the two epsilon backbones share every stage; the denoiser module, the
     DDIM beta schedule, the shift constants and the frame-index sets
@@ -188,36 +220,15 @@ class SDVideoPipeline:
         does not divide the mesh, such as the single-frame style inversion,
         runs replicated) with the collectives of ``distributed.comm``, and
         gathers its frame-axis outputs (``gather=False``: returns the
-        rank's shard). Serves SD and AnimateDiff alike."""
+        rank's shard). Serves SD and AnimateDiff alike. On a mesh with a
+        tensor axis the modules are replicated over it too, as the JAX
+        package's are: the ``n_tensor`` ranks of a data shard run its frames
+        alike, and the frame collectives run over each data group."""
         if mesh is None:
             return self
         for m in (self.unet, self.vae, self.text_encoder):
             replicate(m, mesh)
         return dataclasses.replace(self, mesh=mesh, gather=gather)
-
-    def _frame_shard(self, num_frames: Optional[int] = None) -> Optional[FrameShard]:
-        """This rank's share of a ``num_frames`` clip (default the
-        pipeline's), or None: no mesh, or a count the mesh does not divide."""
-        nf = self.num_frames if num_frames is None else num_frames
-        if self.mesh is None or self.mesh.n_data == 1 or nf % self.mesh.n_data:
-            return None
-        return FrameShard.of(self.mesh, nf)
-
-    def _shard(self, x, axis: int = 0, num_frames: Optional[int] = None):
-        """The rank's slice of a whole-clip input's frame axis; an input that
-        is already a shard, or whose axis is not the clip's, passes."""
-        nf = self.num_frames if num_frames is None else num_frames
-        if x is None or self._frame_shard(nf) is None or x.shape[axis] != nf:
-            return x
-        return shard_input(self.mesh, x, axis)
-
-    def _replicated(self, x):
-        return replicate_input(self.mesh, x)
-
-    def _gather(self, x, shard: Optional[FrameShard], axis: int = 0):
-        if shard is None or not self.gather or x is None:
-            return x
-        return gather_frames(x, self.mesh, axis, site="outputs")
 
     def _video_ctx(self, num_frames: int, frame_indices, pnp_frame_indices=None) -> VideoCtx:
         """The video context of a ``num_frames`` forward: the rank's share

@@ -13,6 +13,11 @@ fp32 between steps; the modules run in the working type (bf16 on the card).
 Weights come from a diffusers-layout checkpoint directory (strict loads) or
 from a seeded random init. At full size every module is built on the
 device, in the working type: T5-XXL alone holds 4.7B parameters.
+
+Under a ``('data', 'tensor')`` mesh (:meth:`SD3VideoPipeline.with_mesh`)
+the frame axis shards over ``data`` and the MMDiT's attention and MLP
+linears split over ``tensor`` (``distributed/tp.py``), as the JAX
+pipeline runs dp x tp (univst_tpu/pipelines/sd3.py:225-257).
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from univst_torch.core.scheduler import (
     generate_eta_values,
     scale_eta_window,
 )
+from univst_torch.distributed.mesh import Mesh, replicate
+from univst_torch.distributed.tp import shard_mmdit
 from univst_torch.methods import inversion as inv
 from univst_torch.methods.style_transfer import style_transfer_rf_steps
 from univst_torch.models.clip_text import CLIPTextConfig, CLIPTextModel, Tokenizer
@@ -47,7 +54,9 @@ from univst_torch.models.layers import StyleCtx, VideoCtx
 from univst_torch.models.mmdit import MMDiT, MMDiTConfig, extract_mmdit_style_kv
 from univst_torch.models.t5 import T5Config, T5Encoder, T5TokenizerShim
 from univst_torch.models.vae import AutoencoderKL, VAEConfig, sample_latent
-from univst_torch.pipelines.sd import random_init_, resolve_device, set_precision
+from univst_torch.pipelines.sd import (
+    FrameParallel, random_init_, resolve_device, set_precision,
+)
 from univst_torch.pipelines.segments import phase_segments
 
 
@@ -80,7 +89,7 @@ def _configs(variant: str, capture_block: Optional[int]):
 
 
 @dataclasses.dataclass
-class SD3VideoPipeline:
+class SD3VideoPipeline(FrameParallel):
     mmdit: MMDiT
     vae: AutoencoderKL
     clip_l: Optional[CLIPTextModel]
@@ -96,6 +105,12 @@ class SD3VideoPipeline:
     # the MMDiT has no per-frame state, so this is exact), its K/V captured
     # by a single-frame forward and injected into the 2-branch batch
     style_singleton: bool = True
+    # dp x tp (``with_mesh``): every rank holds the whole input, runs its
+    # data shard's frames on its tensor share of the MMDiT
+    mesh: Optional[Mesh] = None
+    # under a mesh, gather each stage's frame-axis outputs onto every rank
+    # (True), or return the rank's shard (False)
+    gather: bool = True
 
     # -- construction --------------------------------------------------------
 
@@ -151,6 +166,33 @@ class SD3VideoPipeline:
         style inversion shares the content pipeline's weights)."""
         return dataclasses.replace(self, num_frames=num_frames)
 
+    # -- dp x tp ------------------------------------------------------------------
+
+    def with_mesh(self, mesh: Optional[Mesh], gather: bool = True) -> "SD3VideoPipeline":
+        """The pipeline on ``mesh`` (the counterpart of
+        univst_tpu/pipelines/sd3.py:225-246): the modules are replicated from
+        rank 0 (the text encoders too, unless freed), then the MMDiT's
+        linears split over the tensor axis, in place
+        (``distributed.tp.shard_mmdit``). Every stage then takes the whole
+        input on every rank, runs its data shard's frames (``_shard``; a
+        frame count that does not divide the data axis, such as the
+        single-frame style forwards, runs on every data rank) and gathers
+        its frame-axis outputs (``gather=False``: returns the shard)."""
+        if mesh is None:
+            return self
+        for m in (self.mmdit, self.vae, self.clip_l, self.clip_g, self.t5):
+            if m is not None:
+                replicate(m, mesh)
+        shard_mmdit(self.mmdit, mesh)
+        return dataclasses.replace(self, mesh=mesh, gather=gather)
+
+    def _video_ctx(self) -> VideoCtx:
+        """The video context of a whole-clip forward: the rank's share and
+        its ``shard`` under a data axis."""
+        shard = self._frame_shard()
+        return VideoCtx(num_frames=self.num_frames if shard is None else shard.local,
+                        frame_indices=SD3_FRAME_INDICES, shard=shard)
+
     # -- text -----------------------------------------------------------------
 
     def free_text_encoders(self) -> None:
@@ -185,22 +227,33 @@ class SD3VideoPipeline:
     def encode_frames(self, frames, generator: Optional[torch.Generator] = None, noise=None):
         """``[F, H, W, 3]`` in [-1, 1] -> normalized latents ``[F, h, w, 16]``
         fp32, ``(z - shift) * scale`` (flow_inversion.py:29-30). ``noise``
-        overrides the posterior draw from ``generator``."""
+        overrides the posterior draw from ``generator``. Under a data axis
+        each rank encodes its frames (the encoder is per frame) and takes its
+        slice of the whole clip's draw."""
         x = torch.as_tensor(np.asarray(frames), device=self.device)
-        mean, logvar = self.vae.encode(x.to(self.dtype))
+        nf, shard = x.shape[0], self._frame_shard(x.shape[0])
+        mean, logvar = self.vae.encode(self._shard(x, num_frames=nf).to(self.dtype))
+        if shard is not None:
+            if noise is None:
+                noise = torch.randn((nf,) + tuple(mean.shape[1:]), generator=generator,
+                                    device=mean.device, dtype=torch.float32)
+            noise = self._shard(torch.as_tensor(noise), num_frames=nf)
         z = sample_latent(mean.float(), logvar.float(), generator, noise)
-        return (z - self.vae.cfg.shift_factor) * self.vae.cfg.scaling_factor
+        return self._gather((z - self.vae.cfg.shift_factor) * self.vae.cfg.scaling_factor, shard)
 
     @torch.inference_mode()
     def decode_latents(self, latents, chunk: Optional[int] = None):
         """Latents ``[F, h, w, 16]`` -> frames ``[F, H, W, 3]`` in [0, 1]
         (fp32). The SD3 decoder mixes no frames, so ``chunk`` frames at a time
-        give the same frames with a smaller peak of activation memory."""
+        give the same frames with a smaller peak of activation memory, and
+        under a data axis each rank decodes its frames."""
         cfg = self.vae.cfg
+        shard = self._frame_shard(latents.shape[0])
+        latents = self._shard(latents, num_frames=latents.shape[0])
         z = (latents.to(self.device).float() / cfg.scaling_factor + cfg.shift_factor).to(self.dtype)
         step = z.shape[0] if not chunk else chunk
         px = torch.cat([self.vae.decode(z[s:s + step]) for s in range(0, z.shape[0], step)])
-        return torch.clamp(px.float() / 2.0 + 0.5, 0.0, 1.0)
+        return self._gather(torch.clamp(px.float() / 2.0 + 0.5, 0.0, 1.0), shard)
 
     def decode_latents_uint8(self, latents, chunk: Optional[int] = None):
         return torch.round(self.decode_latents(latents, chunk) * 255.0).to(torch.uint8)
@@ -211,7 +264,7 @@ class SD3VideoPipeline:
         return tuple(x.to(self.device, self.dtype) for x in xs)
 
     def _denoise_fn(self, context, pooled, style_cfg: Optional[StyleShiftConfig]):
-        vctx = VideoCtx(num_frames=self.num_frames, frame_indices=SD3_FRAME_INDICES)
+        vctx = self._video_ctx()
         context, pooled = self._cast(context, pooled)
 
         def denoise(latents, t, step_idx):
@@ -236,18 +289,24 @@ class SD3VideoPipeline:
         """RF-Inversion / RF-Solver inversion -> (trajectory ``[N+1, F, h, w,
         16]``, captured feature ``[F, h/2, w/2, D]`` or None) (reference
         flow_inversion.py:122-264). ``gamma > 0`` pulls toward
-        ``target_noise``, which the caller draws."""
+        ``target_noise``, which the caller draws for the whole clip (a rank
+        takes its slice). Under a data axis the trajectory and the feature
+        are sharded on their frame axes and gathered."""
         mu = self._mu(*img_latents.shape[1:3])
-        latents = img_latents.to(self.device).float()
+        shard = self._frame_shard()
+        latents = self._shard(img_latents).to(self.device).float()
         if self.mmdit.cfg.capture_block is None:
             capture_step = None
-        denoise = self._denoise_fn(context, pooled, None)
+        denoise = self._denoise_fn(self._replicated(context), self._replicated(pooled), None)
         if is_rf_solver:
-            return inv.rf_solver_invert(denoise, latents, self.schedule, num_steps,
-                                        capture_step=capture_step, mu=mu)
-        noise = None if target_noise is None else target_noise.to(self.device).float()
-        return inv.rf_invert(denoise, latents, self.schedule, num_steps, gamma=gamma,
-                             target_noise=noise, capture_step=capture_step, mu=mu)
+            traj, feat = inv.rf_solver_invert(denoise, latents, self.schedule, num_steps,
+                                              capture_step=capture_step, mu=mu)
+        else:
+            noise = (None if target_noise is None
+                     else self._shard(target_noise).to(self.device).float())
+            traj, feat = inv.rf_invert(denoise, latents, self.schedule, num_steps, gamma=gamma,
+                                       target_noise=noise, capture_step=capture_step, mu=mu)
+        return self._gather(traj, shard, axis=1), self._gather(feat, shard)
 
     @torch.inference_mode()
     def reconstruct_latents(self, inversed_latents, img_latents, context, pooled,
@@ -259,10 +318,12 @@ class SD3VideoPipeline:
         start_step, end_step = scale_eta_window(start_step, end_step, num_steps)
         etas = generate_eta_values(self.schedule.timesteps(num_steps, mu=mu), start_step,
                                    end_step, eta_base, eta_trend)
-        denoise = self._denoise_fn(context, pooled, None)
-        return inv.rf_sample_controlled(
-            denoise, inversed_latents.to(self.device).float(),
-            img_latents.to(self.device).float(), self.schedule, num_steps, etas, mu=mu)
+        shard = self._frame_shard()
+        denoise = self._denoise_fn(self._replicated(context), self._replicated(pooled), None)
+        return self._gather(inv.rf_sample_controlled(
+            denoise, self._shard(inversed_latents).to(self.device).float(),
+            self._shard(img_latents).to(self.device).float(), self.schedule, num_steps, etas,
+            mu=mu), shard)
 
     @torch.inference_mode()
     def stylize_latents(self, content_traj_rev, style_traj_rev, init_latents, img_latents,
@@ -277,6 +338,11 @@ class SD3VideoPipeline:
         window, where the content/style forwards are dead compute (the
         reference keeps only the stylized velocity, custom_pipeline.py:317-320)
         — runs the stylized branch alone.
+
+        Under a data axis the trajectories (frame axis 1), the initial and
+        clean latents and the mask (axis 0) are sharded, the text context
+        replicated; the single-frame style capture forward runs on every
+        rank (each on its tensor share of the heads).
         """
         n = cfg.num_steps
         mu = self._mu(*init_latents.shape[1:3])
@@ -285,15 +351,17 @@ class SD3VideoPipeline:
         etas = generate_eta_values(self.schedule.timesteps(n, mu=mu), e_start, e_end,
                                    cfg.eta_base, cfg.eta_trend)
         dev = self.device
-        content = content_traj_rev.to(dev)
-        style = style_traj_rev.to(dev)
+        shard = self._frame_shard()
+        content = self._shard(content_traj_rev, axis=1).to(dev)
+        style = self._shard(style_traj_rev, axis=1).to(dev)
+        context3, pooled3 = self._replicated(context3), self._replicated(pooled3)
         if self.style_singleton:
             style = style[:, :1]
         elif style.shape[1] == 1 and self.num_frames > 1:
             style = style.expand(-1, content.shape[1], -1, -1, -1)
-        mask = None if mask is None else torch.as_tensor(mask, device=dev)
-        img = img_latents.to(dev).float()
-        latents = init_latents.to(dev).float()
+        mask = None if mask is None else self._shard(torch.as_tensor(mask, device=dev))
+        img = self._shard(img_latents).to(dev).float()
+        latents = self._shard(init_latents).to(dev).float()
         phase1, phase2 = phase_segments(n, style_cfg.window_end())
         seg = dict(content=content, style=style, sigmas=sigmas, etas=etas, img=img, mask=mask,
                    cfg=cfg)
@@ -306,7 +374,7 @@ class SD3VideoPipeline:
                                                  **seg)
         for s0, c in phase2:
             latents = self._stylize1_segment(latents, s0, c, context3, pooled3, **seg)
-        return latents
+        return self._gather(latents, shard)
 
     def _steps(self, denoise, latents, s0, c, content, style, sigmas, etas, img, mask, cfg,
                **kw):
@@ -327,7 +395,7 @@ class SD3VideoPipeline:
         [content | stylized] forward with its per-block K/V injected."""
         ctx2, pooled2 = self._cast(context3[0::2], pooled3[0::2])
         ctx1, pooled1 = self._cast(context3[1:2], pooled3[1:2])
-        vctx = VideoCtx(num_frames=self.num_frames, frame_indices=SD3_FRAME_INDICES)
+        vctx = self._video_ctx()
         vctx1 = VideoCtx(num_frames=1, frame_indices=())
 
         def denoise2(x2, t, i, sty_lat):
