@@ -125,7 +125,16 @@ none catches its own failure:
    the same inputs. Reported: the workflow bars (``_compare``), the
    workflow against its floor (``_workflow_floor``) and, for the fp32
    jobs, what the encode's batch shape alone does on one card
-   (``_encode_batch_floor``).
+   (``_encode_batch_floor``). ``[mesh] smooth``: the SD bf16 job's ranks
+   and its one-card fp32 floor and bf16 runs also stylize with the pixel
+   smoother (LK, smoothing steps [4, 6), radius 2) from the same
+   trajectories, masks and context, and run one smoothing step alone with
+   the VAE in fp32 on the floor's inputs to it, with LK and with
+   RAFT-large (``_mesh_smooth``, ``_check_mesh_smooth``): each rank decodes
+   its own frames, fetches the +/-2 decoded frames its keys read in one
+   ``smooth_halo`` all-to-all (6.29 MB) and runs its own 58 of the 116
+   flows; gated stage by stage in fp32 and in bf16 against the floor, K1
+   100 launches a rank.
 12. SD3 on a ``data x tensor`` mesh (``[mesh]``, ``SD3_MESH_JOBS``):
    SD3-medium bf16 at 512 px / 16 frames / 2 steps over ``data=2`` and
    SD3.5-medium bf16 at 512 px / 8 frames / 1 step over ``data=2,
@@ -140,7 +149,7 @@ none catches its own failure:
 Each path's launch counters are zeroed just before it and read just after;
 a kernel's ``launches`` in the JSON line is the sum over its paths, each
 path's own count under ``launches_by_path`` (K1: the SD, SD-fallback,
-smoother, profile and mesh paths; K2: SD3-medium, SD3.5-medium,
+smoother, profile, mesh and mesh_smooth paths; K2: SD3-medium, SD3.5-medium,
 SD3.5-large, profile, mesh and mesh_sd3). The last line is ``{"ok": true,
 "device": {...}}``; the lines before it hold the per-kernel JSON and the
 card's name and power limit. Any failed check exits non-zero. ``--steps``
@@ -635,10 +644,11 @@ def _style_pipe(pipe, backbone: str):
     return pipe.with_frames(1) if backbone == "sd" else pipe
 
 
-def _stylize(pipe, backbone: str, traj, straj, ctx, masks, steps: int):
+def _stylize(pipe, backbone: str, traj, straj, ctx, masks, steps: int, **smoother):
     """The workflow's stylization: SD from the AdaIN-shifted content noise
     and the singleton style; AnimateDiff (its runner) from the raw content
-    noise and every style frame."""
+    noise and every style frame. ``smoother``: ``StyleTransferConfig``'s
+    smoother fields (``MESH_SMOOTH``)."""
     import torch
 
     from univst_torch.core.adain import latent_adain
@@ -653,7 +663,7 @@ def _stylize(pipe, backbone: str, traj, straj, ctx, masks, steps: int):
         init = content_rev[0]
     return pipe.stylize_latents(content_rev, style_rev, init, torch.cat([ctx] * 3),
                                 mask=masks.float() / 255.0,
-                                cfg=StyleTransferConfig(num_steps=steps))
+                                cfg=StyleTransferConfig(num_steps=steps, **smoother))
 
 
 def _decode_float(pipe, out, chunk: int = 8):
@@ -798,7 +808,7 @@ def phase_smooth(sd_state, steps: int):
     pipe, traj, straj, ctx, masks, plain_out = sd_state
     acc, first = {}, {}
     pipe = dataclasses.replace(pipe, flow_fn=_timed(flow_mod.lucas_kanade_flow, acc, "flow"))
-    pipe._decode = _timed(pipe._decode, acc, "decode")
+    pipe._decode_local = _timed(pipe._decode_local, acc, "decode")
     vae, unet = pipe.vae, pipe.unet
     vae.encode = _timed(vae.encode, acc, "encode")
     smooth_fn = flow_mod.sliding_window_smooth
@@ -1245,6 +1255,11 @@ SD3_MESH_JOBS = {
     "sd3m_bf16_dp2": ("sd3", "bf16", 512, 16, 2, 1, 2),
     "sd35m_bf16_dp2tp2": ("sd35m", "bf16", 512, 8, 2, 2, 1),
 }
+# [mesh] smooth: the job whose ranks and one-card runs also stylize with
+# the pixel smoother (LK, two smoothing steps inside phase 1, radius 2;
+# ``_mesh_smooth``), from the same trajectories, masks and context
+MESH_SMOOTH_JOB = "sd_bf16_2"
+MESH_SMOOTH = dict(smoother="pixel", smoother_steps=(4, 6), smoother_radius=2)
 SD3_CAPTURE = (20, 5)  # the feature's block and inversion step (phase_sd3's)
 # a workflow's tensors that a [mesh] comparison reads; the stage inputs a
 # stage-fed run takes from another run; the outputs of each stage
@@ -1434,9 +1449,10 @@ def _mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe: dic
     build it, replicated from rank 0 (``with_mesh``), then the workflow on
     the rank's frames, the forward pair on the reference's inputs, and each
     stage once more on the stage inputs of the one-card run in
-    ``out_dir/fed.pt`` (``_stage_fed``). Each rank writes its counts and
-    times; rank 0 also the gathered outputs. Nothing is caught: a failure
-    ends the job."""
+    ``out_dir/fed.pt`` (``_stage_fed``), and in ``MESH_SMOOTH_JOB`` the
+    smoothed stylization and smoothing steps (``_mesh_smooth``). Each rank
+    writes its counts and times; rank 0 also the gathered outputs. Nothing
+    is caught: a failure ends the job."""
     import torch
     import torch.distributed as dist
 
@@ -1468,12 +1484,21 @@ def _mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe: dic
     torch.save(stats, os.path.join(out_dir, f"stats{rank}.pt"))
     forward = _forward_pair(pipe, probe)  # on the reference's inputs
     t0 = time.time()
-    fed = _stage_fed(pipe, backbone, steps, nf, px,
-                     torch.load(os.path.join(out_dir, "fed.pt"), weights_only=False))
+    fed_in = torch.load(os.path.join(out_dir, "fed.pt"), weights_only=False)
+    fed = _stage_fed(pipe, backbone, steps, nf, px, fed_in)
     print(f"[mesh] {job} r{rank}: stage-fed stages in {time.time() - t0:.1f}s", flush=True)
+    smooth = None
+    if job == MESH_SMOOTH_JOB:
+        t0 = time.time()
+        smooth = _mesh_smooth(pipe, fed_in, steps)
+        torch.save({k: v for k, v in smooth.items() if not torch.is_tensor(v)},
+                   os.path.join(out_dir, f"smooth{rank}.pt"))
+        print(f"[mesh] {job} r{rank}: smoothed stylization and steps in "
+              f"{time.time() - t0:.1f}s", flush=True)
     if rank == 0:
         result = {k: w[k].cpu() for k in WF_KEYS}
-        torch.save(dict(result, forward=forward, fed=fed), os.path.join(out_dir, "result.pt"))
+        torch.save(dict(result, forward=forward, fed=fed, smooth=smooth),
+                   os.path.join(out_dir, "result.pt"))
     dist.barrier()
     dist.destroy_process_group()
 
@@ -1493,13 +1518,18 @@ def _run_mesh_job(job: str, steps: int, probe: dict, fed: dict):
     else:
         n, target = SD3_MESH_JOBS[job][4] * SD3_MESH_JOBS[job][5], _sd3_mesh_rank
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "results")) as out_dir:
-        torch.save({k: fed[k] for k in FED_INPUTS + ("pooled",) if k in fed},
+        torch.save({k: fed[k] for k in FED_INPUTS + ("pooled", "smooth_in", "smooth_ref")
+                    if k in fed},
                    os.path.join(out_dir, "fed.pt"))
         t0 = time.time()
         mp.spawn(target, args=(n, out_dir, job, steps, probe), nprocs=n, join=True)
         wall = time.time() - t0
         stats = [torch.load(os.path.join(out_dir, f"stats{r}.pt"), weights_only=False)
                  for r in range(n)]
+        for r, st in enumerate(stats):
+            path = os.path.join(out_dir, f"smooth{r}.pt")
+            if os.path.exists(path):
+                st["smooth"] = torch.load(path, weights_only=False)
         result = torch.load(os.path.join(out_dir, "result.pt"), weights_only=False)
     print(f"[mesh] {job}: {n} ranks in {wall:.1f}s", flush=True)
     return result, stats
@@ -1580,12 +1610,15 @@ def _forward_pair(pipe, probe: dict) -> dict:
 
 
 def _one_process(backbone: str, dtype_name: str, px: int, nf: int, steps: int, tag: str,
-                 forward: bool = True, fed=None, encode_parts=()):
+                 forward: bool = True, fed=None, encode_parts=(), smooth: bool = False):
     """A ``[mesh]`` job's one-process run on the card: the workflow (its
     tensors, each stage's output on its own inputs, the decode's frames
     before rounding), with ``forward`` its forward pair, with ``fed`` each
     stage on another run's stage inputs (``_stage_fed``), and the encode's
-    batch-shape floor for each split in ``encode_parts``."""
+    batch-shape floor for each split in ``encode_parts``. With ``smooth``:
+    without ``fed`` (the fp32 floor) the smoothed stylization on its own
+    tensors and its first smoothing step's inputs; with
+    ``fed`` (the one-card bf16 run) ``_mesh_smooth`` on ``fed``'s."""
     import torch
 
     pipe = _build_mesh_pipe(backbone, dtype_name, nf)
@@ -1597,6 +1630,13 @@ def _one_process(backbone: str, dtype_name: str, px: int, nf: int, steps: int, t
         out["forward"] = _forward_pair(pipe, out["probe"])
     if fed is not None:
         out["fed"] = _stage_fed(pipe, backbone, steps, nf, px, fed)
+    if smooth and fed is None:
+        out["smooth_in"] = {}
+        spipe = _with_smooth_eps(pipe, _first_step_inputs(out["smooth_in"]))
+        out["smooth_out"] = _stylize(spipe, backbone, w["traj"], w["straj"], w["ctx"], w["masks"],
+                                     steps, **MESH_SMOOTH).cpu()
+    elif smooth:
+        out["smooth"] = _mesh_smooth(pipe, fed, steps)
     out["encode_floor"] = {parts: _encode_batch_floor(pipe, nf, px, parts)
                            for parts in encode_parts}
     del pipe, w
@@ -1646,6 +1686,141 @@ def _stage_fed(pipe, backbone: str, steps: int, nf: int, px: int, fed: dict) -> 
     res["rec"] = pipe.reconstruct_latents(inp("traj")[-1], ctx, num_steps=steps)
     _sync()
     return {k: v.cpu() for k, v in res.items()}
+
+
+def _with_smooth_eps(pipe, wrap):
+    """A copy of ``pipe`` whose smoothing steps call ``wrap(pipe._smooth_eps)``
+    (a recorder, a timer) in its place."""
+    pipe = dataclasses.replace(pipe)
+    pipe._smooth_eps = wrap(pipe._smooth_eps)
+    return pipe
+
+
+def _first_step_inputs(record: dict):
+    """A ``_with_smooth_eps`` wrap that keeps the first smoothing step's inputs
+    (``eps``, ``t``, ``latents``, ``mask``) in ``record``."""
+    def wrap(smooth_eps):
+        def recorded(eps, t, latents, mask, cfg):
+            if not record:
+                record.update(eps=eps.cpu(), t=t, latents=latents.cpu(), mask=mask.cpu())
+            return smooth_eps(eps, t, latents, mask, cfg)
+        return recorded
+    return wrap
+
+
+def _raft_seed0(device, mesh=None):
+    """RAFT-large as ``[raft]`` builds it (``RAFTConfig()``, weights from
+    seed 0, fp32) on ``device``, replicated from rank 0 under ``mesh`` as
+    the transfer CLI replicates a loaded one."""
+    import torch
+
+    from univst_torch.distributed.mesh import replicate
+    from univst_torch.models.raft import RAFT, RAFTConfig, make_raft_flow
+
+    torch.manual_seed(0)
+    model = RAFT(RAFTConfig()).eval().to(device)
+    return make_raft_flow(replicate(model, mesh))
+
+
+def _counted_flow(fn, batches: list):
+    """``fn`` that appends each call's batch size (pairs x 2) to ``batches``."""
+    def counted(a, b):
+        batches.append(int(a.shape[0]))
+        return fn(a, b)
+    return counted
+
+
+def _mesh_smooth(pipe, fed: dict, steps: int) -> dict:
+    """``[mesh] smooth`` on one run of ``MESH_SMOOTH_JOB`` (a rank, or the
+    one-card bf16 run): the smoothed stylization (``_stylize`` with
+    ``MESH_SMOOTH``, LK) on
+    ``fed``'s trajectories, masks and context, with its K1 / K2 launches,
+    its ``smooth_halo`` collectives, its flow batches and the seconds of
+    each smoothing step; then one smoothing step alone, with the VAE in
+    fp32, on the fp32 floor's inputs to its first smoothing step
+    (``fed['smooth_in']``; under a mesh the rank's frames of them), with LK
+    and with RAFT-large (``_raft_seed0``). Outputs gathered, on the host."""
+    import torch
+
+    import univst_torch.methods.flow as flow_mod
+    from univst_torch.core.config import StyleTransferConfig
+    from univst_torch.distributed.census import collect_collectives
+
+    dev, shard = pipe.device, pipe._frame_shard()
+    step_s, batches = [], []
+
+    def timer(smooth_eps):
+        def timed(*a, **kw):
+            _sync()
+            t0 = time.time()
+            out = smooth_eps(*a, **kw)
+            _sync()
+            step_s.append(time.time() - t0)
+            return out
+        return timed
+
+    lk = _counted_flow(flow_mod.lucas_kanade_flow, batches)
+    counters = _zero_counters()
+    spipe = _with_smooth_eps(dataclasses.replace(pipe, flow_fn=lk), timer)
+    with collect_collectives() as recs:
+        out = _stylize(spipe, "sd", *(fed[k].to(dev) for k in ("traj", "straj", "ctx", "masks")),
+                       steps, **MESH_SMOOTH)
+        _sync()
+    res = dict(out=out.cpu(), launches={name: fn.launches for name, fn in counters.items()},
+               step_s=step_s, flow_batches=batches,
+               halo=[(op, nbytes, sec) for op, nbytes, site, sec in recs
+                     if site == "smooth_halo"])
+    s_in, one = fed["smooth_in"], fed.get("smooth_ref")
+    cfg = StyleTransferConfig(num_steps=steps, **MESH_SMOOTH)
+    eps, lat, mask = (pipe._shard(s_in[k].to(dev)) for k in ("eps", "latents", "mask"))
+    smooth_fn = flow_mod.sliding_window_smooth
+    pipe.vae.float()
+    try:
+        for name, fn in (("lk", flow_mod.lucas_kanade_flow), ("raft", _raft_seed0(dev, pipe.mesh))):
+            fb, rec = [], {}
+            p32 = dataclasses.replace(pipe, dtype=torch.float32, flow_fn=_counted_flow(fn, fb))
+            decode = p32._decode_local
+
+            def decode_kept(*a, **kw):
+                rec["px"] = decode(*a, **kw)
+                return rec["px"]
+
+            def smooth_kept(*a, **kw):
+                rec["sm"] = smooth_fn(*a, **kw)
+                return rec["sm"]
+
+            p32._decode_local, flow_mod.sliding_window_smooth = decode_kept, smooth_kept
+            try:
+                with torch.inference_mode(), collect_collectives() as step_recs:
+                    got = p32._smooth_eps(eps, s_in["t"], lat, mask, cfg)
+                    _sync()
+                res[f"step_{name}"] = pipe._gather(got, shard).cpu()
+                res[f"sm_{name}"] = pipe._gather(rec["sm"], shard).cpu()
+                if "px" not in res:  # the same decode for both flows
+                    res["px"] = pipe._gather(rec["px"], shard).cpu()
+                if one is not None:
+                    # the same step fed the one-card run's decoded frames (its
+                    # smoother's input) and smoothed frames (its encoder's)
+                    p32._decode_local = lambda *a, **kw: pipe._shard(one["px"].to(dev))
+
+                    def smooth_fed(*a, **kw):
+                        rec["fed_sm"] = smooth_fn(*a, **kw)
+                        return pipe._shard(one[f"sm_{name}"].to(dev))
+
+                    flow_mod.sliding_window_smooth = smooth_fed
+                    with torch.inference_mode():
+                        fed_step = p32._smooth_eps(eps, s_in["t"], lat, mask, cfg)
+                    res[f"fed_step_{name}"] = pipe._gather(fed_step, shard).cpu()
+                    res[f"fed_sm_{name}"] = pipe._gather(rec["fed_sm"], shard).cpu()
+            finally:
+                flow_mod.sliding_window_smooth = smooth_fn
+            res[f"step_{name}_flow_batches"] = fb[:1]
+            res[f"step_{name}_halo"] = [(op, nbytes) for op, nbytes, site, _ in step_recs
+                                        if site == "smooth_halo"]
+    finally:
+        pipe.vae.to(pipe.dtype)
+    torch.cuda.empty_cache()
+    return res
 
 
 def _encode_batch_floor(pipe, nf: int, px: int, parts: int) -> dict:
@@ -1805,6 +1980,109 @@ def _check_mesh(job: str, result, ref, fed_ref, one_fed=None, floor=None) -> dic
     return out
 
 
+def _window_reads(rank: int, n: int, nf: int, radius: int):
+    """The global frames outside rank ``rank``'s shard of ``nf`` frames that
+    its keys' +/-radius windows read, and its keys' pairs."""
+    f = nf // n
+    o = rank * f
+    reads = [g for g in (*range(o - radius, o), *range(o + f, o + f + radius)) if 0 <= g < nf]
+    pairs = sum(1 for k in range(o, o + f) for b in range(-radius, radius + 1)
+                if b and 0 <= k + b < nf)
+    return reads, pairs
+
+
+def _check_mesh_smooth(job: str, result, stats, ref, floor) -> dict:
+    """``[mesh] smooth``: the smooth job's ranks against its one-card runs.
+
+    Gated: the smoothing step alone with the VAE in fp32, on the fp32
+    floor's inputs to its first smoothing step, sharded against one card
+    (the bf16 run's weights in fp32 on both sides), ``_err_over_tol32`` <= 1
+    stage by stage, each stage fed the one-card step's own input to it: the
+    decode of x0, the smoother (with LK and with RAFT-large) on the
+    one-card decoded frames, the encode and ``return_to_timestep`` of the
+    one-card smoothed frames; and the whole step with RAFT-large. The whole
+    step with LK is reported, not gated: LK's 2x2 solves (a determinant of
+    ~1e-6 where the frames are flat) and its 1.5 px occlusion threshold
+    carry the decode's fp32 rounding (err / tol ~0.4, a different conv
+    algorithm per batch shape) into the smoothed frames ~700-fold (max abs
+    1.8e-5 -> 1.3e-2 on the card), where the sharded smoother fed the same
+    frames is bit for bit the one-card one; the sharded smoothed stylization's
+    relative RMS to the floor's over the one-card bf16 one's at most
+    ``MESH_BF16_RATIO``; both finite and each more than 1e-2 (max abs) from
+    the unsmoothed stylization on the same inputs; per rank and smoothing
+    step one ``smooth_halo`` all-to-all that brings the frames its keys
+    read (2 frames of 512 x 512 x 3 fp32 = 6.29 MB on each rank of 2) and
+    one flow batch of its own keys' pairs x 2 (58 of the clip's 116); K1
+    10 x steps launches a rank, K2 none. Returns the ranks' launches,
+    summed."""
+    import torch
+
+    _, _, px, nf, n, steps = MESH_JOBS[job]
+    radius = MESH_SMOOTH["smoother_radius"]
+    n_smooth = len(range(*MESH_SMOOTH["smoother_steps"]))
+    got, one = result["smooth"], ref["smooth"]
+    fp32 = dict(
+        step={k: _err_over_tol32(got[f"step_{k}"], one[f"step_{k}"]) for k in ("lk", "raft")},
+        decode=_err_over_tol32(got["px"], one["px"]),
+        smoother_fed={k: _err_over_tol32(got[f"fed_sm_{k}"], one[f"sm_{k}"])
+                      for k in ("lk", "raft")},
+        encode_fed={k: _err_over_tol32(got[f"fed_step_{k}"], one[f"step_{k}"])
+                    for k in ("lk", "raft")},
+        smoother_on_own_decode={k: _err_over_tol32(got[f"sm_{k}"], one[f"sm_{k}"])
+                                for k in ("lk", "raft")},
+        decode_max_abs=(got["px"] - one["px"]).abs().max().item(),
+        smoother_on_own_decode_max_abs={k: (got[f"sm_{k}"] - one[f"sm_{k}"]).abs().max().item()
+                                        for k in ("lk", "raft")})
+    err = _rel_rms(got["out"], floor["smooth_out"])
+    base = _rel_rms(one["out"], floor["smooth_out"])
+    diffs = dict(sharded=(got["out"] - result["fed"]["out"]).abs().max().item(),
+                 one_card=(one["out"] - ref["fed"]["out"]).abs().max().item())
+    frame_mb = px * px * 3 * 4 / 1e6
+    ranks, launches, ok = [], {}, True
+    for r, st in enumerate(stats):
+        sm = st["smooth"]
+        reads, pairs = _window_reads(r, n, nf, radius)
+        row = dict(rank=r, smooth_halo=[dict(op=op, mb=b / 1e6) for op, b, _ in sm["halo"]],
+                   want_mb=len(reads) * frame_mb,
+                   smooth_halo_host_s=sum(sec for *_, sec in sm["halo"]),
+                   flows_per_step=sm["flow_batches"], want_flows=2 * pairs,
+                   smoothing_step_s=sm["step_s"],
+                   stage_fed_halo_mb={k: [b / 1e6 for _, b in sm[f"step_{k}_halo"]]
+                                      for k in ("lk", "raft")},
+                   stage_fed_flows={k: sm[f"step_{k}_flow_batches"] for k in ("lk", "raft")},
+                   launches=sm["launches"])
+        want_halo = [("all_to_all", len(reads) * px * px * 3 * 4)]
+        ok &= ([(op, b) for op, b, _ in sm["halo"]] == want_halo * n_smooth
+               and all(sm[f"step_{k}_halo"] == want_halo for k in ("lk", "raft"))
+               and sm["flow_batches"] == [2 * pairs] * n_smooth
+               and all(sm[f"step_{k}_flow_batches"] == [2 * pairs] for k in ("lk", "raft")))
+        _check_launches(sm["launches"], {"video_flash_attention": 10 * steps,
+                                         "video_flash_attention_tokens": 0})
+        for name, v in sm["launches"].items():
+            launches[name] = launches.get(name, 0) + v
+        ranks.append(row)
+    out = dict(job=job, steps=steps, smoothing_steps=list(MESH_SMOOTH["smoother_steps"]),
+               radius=radius, flow="lk",
+               smoothing_step_fp32_err_over_tol32=fp32,
+               stylize=dict(sharded_rel_rms_vs_fp32=err, one_card_bf16_rel_rms_vs_fp32=base,
+                            bf16_ratio=err / base,
+                            rel_rms_vs_one_card_bf16=_rel_rms(got["out"], one["out"])),
+               max_abs_diff_vs_unsmoothed=diffs,
+               one_card_smoothing_step_s=one["step_s"], ranks=ranks)
+    print(f"[mesh] smooth {json.dumps(out)}", flush=True)
+    finite = all(torch.isfinite(x).all() for x in (got["out"], one["out"]))
+    if not (finite and min(diffs.values()) > 1e-2):
+        raise AssertionError(f"[mesh] smooth: non-finite or unsmoothed latents ({diffs})")
+    if not ok:
+        raise AssertionError(f"[mesh] smooth: the census is not the halo design: {ranks}")
+    gated = [fp32["decode"], *fp32["smoother_fed"].values(), *fp32["encode_fed"].values(),
+             fp32["step"]["raft"]]
+    if not (max(gated) <= 1.0 and err / base <= MESH_BF16_RATIO):
+        raise AssertionError(f"[mesh] smooth misses one card: fp32 {fp32}, "
+                             f"bf16 ratio {err / base}")
+    return launches
+
+
 def phase_mesh():
     """Frame parallelism on the one card: K1's shard form (three shapes, a
     planted slot-table fault) and K2's (also at a tensor rank's share of
@@ -1835,25 +2113,33 @@ def phase_mesh():
 
 def _mesh_jobs() -> dict:
     """The ``[mesh]`` jobs of ``MESH_JOBS`` with their one-card runs; returns
-    the kernel launches of the sharded workflows, summed over ranks.
+    the kernel launches of the sharded workflows (``mesh``) and of the
+    sharded smoothed stylization (``mesh_smooth``), summed over ranks.
 
     A bf16 job's one-card runs: its floor (the workflow in fp32 from the
     same inputs), whose stage inputs feed the stage-fed checks, and the
     workflow in bf16 (the reference of the sharded run), whose pipeline
     also runs each stage on the floor's stage inputs. The fp32 jobs share
     one one-card fp32 run, whose own stage inputs feed their checks, with
-    the encode's batch-shape floor beside it."""
+    the encode's batch-shape floor beside it. ``MESH_SMOOTH_JOB``'s runs
+    also stylize with the smoother (``_check_mesh_smooth``)."""
     os.makedirs(os.path.join(REPO, "results"), exist_ok=True)
     launches = {"video_flash_attention": 0, "video_flash_attention_tokens": 0}
     refs = {}
+    smooth_launches = dict(launches)
     for job, (backbone, dtype_name, px, nf, n, steps) in MESH_JOBS.items():
         t0 = time.time()
+        smooth = job == MESH_SMOOTH_JOB
         if dtype_name == "bf16":
             floor = _one_process(backbone, "fp32", px, nf, steps, f"mesh {job} fp32 floor",
-                                 forward=False, encode_parts=(2,) if backbone == "sd" else ())
+                                 forward=False, encode_parts=(2,) if backbone == "sd" else (),
+                                 smooth=smooth)
             ref = _one_process(backbone, "bf16", px, nf, steps, f"mesh {job} one card",
-                               fed=floor)
+                               fed=floor, smooth=smooth)
             fed_ref, one_fed = floor, ref["fed"]
+            if smooth:
+                fed_ref = dict(floor, smooth_ref={k: ref["smooth"][k] for k in (
+                    "px", "sm_lk", "sm_raft", "step_lk", "step_raft")})
         else:
             key = (backbone, px, nf, steps)
             if key not in refs:
@@ -1870,9 +2156,11 @@ def _mesh_jobs() -> dict:
             for name in launches:
                 launches[name] += st["launches"][name]
         _check_mesh(job, result, ref, fed_ref, one_fed, floor)
+        if smooth:
+            smooth_launches = _check_mesh_smooth(job, result, stats, ref, floor)
         print(f"[mesh] {job}: one-card runs, job and checks in {time.time() - t0:.1f}s",
               flush=True)
-    return launches
+    return {"mesh": launches, "mesh_smooth": smooth_launches}
 
 
 def _build_sd3_pipe(variant: str, dtype_name: str, nf: int):
@@ -2229,9 +2517,9 @@ def main(argv=None) -> int:
     mesh_sd3_launches = phase_mesh_sd3()
 
     k1_paths = {"sd": sd_launches, "sd_fallback": fallback_launches, "smooth": smooth_launches,
-                "profile": profile_launches, "mesh": mesh_launches}
+                "profile": profile_launches, **mesh_launches}
     k1_paths = {k: v["video_flash_attention"] for k, v in k1_paths.items()}
-    k2_paths = dict(sd3_launches, profile=profile_launches, mesh=mesh_launches,
+    k2_paths = dict(sd3_launches, profile=profile_launches, **mesh_launches,
                     mesh_sd3=mesh_sd3_launches)
     k2_paths = {k: v["video_flash_attention_tokens"] for k, v in k2_paths.items()}
     entries = [

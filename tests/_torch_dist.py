@@ -379,3 +379,79 @@ def sd3_pipeline(mesh, states, num_frames: int, steps: int, inputs: dict, shift:
         cfg=StyleTransferConfig(num_steps=steps), style_cfg=StyleShiftConfig(**shift))
     traj, _ = pipe.invert(torch.tensor(inputs["init"]), ctx, pooled, num_steps=steps)
     return out, traj
+
+
+def pair_flow(a, b):
+    """A flow function both frameworks compute alike (elementwise in the
+    images; ``test_torch_flow.py``'s), for testing what surrounds the
+    estimator."""
+    return torch.stack([4.0 * (a[..., 0] - b[..., 1]), 3.0 * (a[..., 2] - b[..., 0])], -1)
+
+
+def _counted(fn, batches: list):
+    """``fn`` that appends the batch size of every call to ``batches``."""
+    def counted(a, b):
+        batches.append(int(a.shape[0]))
+        return fn(a, b)
+    return counted
+
+
+def window_smooth(mesh, frames, mask, cases):
+    """``sliding_window_smooth``'s shard form on this rank's frames of
+    ``frames`` [F, H, W, C] for each case ``(radius, flow, masked)`` (flow
+    'pair' or 'lk'): the gathered result, the collective census of the
+    call and the batch sizes its flow function saw."""
+    from univst_torch.distributed.census import collect_collectives
+    from univst_torch.distributed.comm import FrameShard
+    from univst_torch.distributed.mesh import gather_frames, shard_frames
+    from univst_torch.methods import flow
+
+    shard = FrameShard.of(mesh, frames.shape[0])
+    local = shard_frames(torch.tensor(frames), mesh)
+    lmask = shard_frames(torch.tensor(mask), mesh)
+    out = []
+    for radius, flow_name, masked in cases:
+        batches: list = []
+        fn = _counted(pair_flow if flow_name == "pair" else flow.lucas_kanade_flow, batches)
+        with collect_collectives() as recs:
+            got = flow.sliding_window_smooth(local, fn, radius, lmask if masked else None,
+                                             shard=shard)
+        out.append((gather_frames(got, mesh), recs, batches))
+    return out
+
+
+def smoothed_stylization(mesh, backbone: str, states, num_frames: int, inputs: dict,
+                         shift: dict, cfg: dict, paths):
+    """The tiny pipeline's ``stylize_latents`` with the pixel smoother
+    (``StyleTransferConfig(**cfg)``) under ``mesh``, once per entry of
+    ``paths`` (pipeline fields: ``style_singleton``, ``style_prepass_chunk``):
+    per path the gathered latents, the collective census of each smoothing
+    step and the batch sizes the flow function saw."""
+    from univst_torch.core.config import StyleShiftConfig, StyleTransferConfig
+    from univst_torch.distributed.census import collect_collectives
+    from univst_torch.methods import flow
+
+    base = _tiny_pipe(mesh, backbone, states, num_frames)
+    ctx = base.encode_text("")
+    res = []
+    for path in paths:
+        batches: list = []
+        recs: list = []
+        pipe = dataclasses.replace(base, flow_fn=_counted(flow.lucas_kanade_flow, batches),
+                                   **path)
+        smooth_eps = pipe._smooth_eps
+
+        def censused(*a, smooth_eps=smooth_eps, recs=recs, **kw):
+            with collect_collectives() as step:
+                out = smooth_eps(*a, **kw)
+            recs.append(step)
+            return out
+
+        pipe._smooth_eps = censused
+        out = pipe.stylize_latents(
+            torch.tensor(inputs["content"]), torch.tensor(inputs["style"]),
+            torch.tensor(inputs["init"]), torch.cat([ctx] * 3),
+            mask=torch.tensor(inputs["mask"]), cfg=StyleTransferConfig(**cfg),
+            style_cfg=StyleShiftConfig(**shift))
+        res.append((out, recs, batches))
+    return res

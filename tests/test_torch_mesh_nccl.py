@@ -3,7 +3,10 @@ runs it: ``torchrun --nproc_per_node 4 -m univst_torch.cli.run_workflow
 --mesh data=4`` against the same CLI on one card (512 px, 16 frames, 30
 steps, bf16, seeded random weights); and the SD3 workflow on a ``data x
 tensor`` mesh the same way: SD3.5-large (1024 px, 16 frames, 8 steps) on
-``--mesh data=2,tensor=2`` and SD3.5-medium (32 steps) on ``--mesh data=4``.
+``--mesh data=2,tensor=2`` and SD3.5-medium (32 steps) on ``--mesh data=4``;
+and the SD workflow once more with the pixel smoother (``--smoother pixel``,
+LK, smoothing steps [20, 25)) on ``data=4``, with the collective census of
+one sharded smoothing step held against a ``torch.profiler`` trace of it.
 Needs four CUDA cards and skips otherwise; imports no JAX:
 
     python -m pytest --noconftest tests/test_torch_mesh_nccl.py -m cuda -s
@@ -179,6 +182,54 @@ def forward_pair_sd3(out_path: str, device=None) -> None:
         torch.distributed.destroy_process_group()
 
 
+def smooth_census(out_path: str) -> None:
+    """One sharded smoothing step of the bf16 SD-1.5 pipeline (seed 0;
+    ``_smooth_eps`` on seeded eps and latents of 16 frames at 512 px, a
+    box mask, LK, radius 2) under torchrun over NCCL, after a warm-up, under
+    ``census.collect_collectives`` and a ``torch.profiler`` trace; each rank
+    saves its census by op and by site and the trace's collectives (by op,
+    ``census.profiler_ops``, by range name, and every ``nccl:*`` range by
+    the device it was recorded on)."""
+    sys.path.insert(0, REPO)
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from univst_torch.core.config import StyleTransferConfig
+    from univst_torch.distributed.census import (
+        collect_collectives, profiler_collectives, profiler_ops, summarize,
+    )
+    from univst_torch.distributed.mesh import init_from_env
+    from univst_torch.pipelines.sd import SDVideoPipeline
+
+    mesh = init_from_env()
+    pipe = SDVideoPipeline.build(variant="sd15", num_frames=NF, dtype=torch.bfloat16, seed=0,
+                                 device=mesh.device).with_mesh(mesh)
+    rng = np.random.default_rng(0)
+    h = PX // 2 ** (len(pipe.vae.cfg.block_out_channels) - 1)
+    shape = (NF, h, h, 4)  # latents are channels-last
+    eps, lat = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)) for _ in "el")
+    mask = torch.zeros(NF, PX, PX)
+    mask[:, PX // 4:3 * PX // 4, PX // 8:5 * PX // 8] = 1.0
+    cfg = StyleTransferConfig(num_steps=STEPS, smoother="pixel")
+    t = int(pipe.schedule.timesteps(STEPS)[cfg.smoother_steps[0]])
+    eps, lat, mask = (pipe._shard(x.to(mesh.device)) for x in (eps, lat, mask))
+    with torch.inference_mode():
+        pipe._smooth_eps(eps, t, lat, mask, cfg)  # warm-up
+        torch.cuda.synchronize()
+        with collect_collectives() as recs, profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pipe._smooth_eps(eps, t, lat, mask, cfg)
+            torch.cuda.synchronize()
+    ranges = Counter(f"{e.name} ({e.device_type.name})" for e in prof.events()
+                     if e.name.startswith("nccl:"))
+    torch.save(dict(rank=mesh.rank, census=dict(Counter(op for op, *_ in recs)),
+                    by_site=summarize(recs, by_site=True), profiler=dict(profiler_ops(prof)),
+                    names=dict(profiler_collectives(prof)), ranges_by_device=dict(ranges)),
+               f"{out_path}.{mesh.rank}")
+    torch.distributed.destroy_process_group()
+
+
 def run_forward_pair(root, ranks: int, timeout: float = 900, kind: str = "sd") -> dict:
     """:func:`forward_pair` (``kind='sd3'``: :func:`forward_pair_sd3`) on
     one card and over ``ranks`` torchrun ranks; returns both results."""
@@ -283,6 +334,44 @@ def err_over_tol_sd3(got, want) -> float:
 
 
 @pytest.mark.cuda
+def test_sd_smoother_workflow_over_nccl_matches_one_card(tmp_path):
+    """The SD workflow CLI with ``--smoother pixel`` (LK; 30 steps, so the
+    five smoothing steps [20, 25) run) on one card and on ``data=4`` over
+    NCCL: rank 0 writes the one-card tree, the masks agree on >= 99.5% of
+    the pixels, every stylized frame is >= 30 dB from the one-card one.
+    Then the census of one sharded smoothing step against its
+    ``torch.profiler`` trace (``smooth_census``): op by op equal on every
+    rank, one ``smooth_halo`` all-to-all among them."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards (one NCCL rank per card)")
+    from univst_torch import _build
+
+    _build.build("video_flash_attention")  # once, before the ranks start
+    ex = os.path.join(REPO, "examples")
+    out = run_and_compare(str(tmp_path), 4, [
+        "--backbone", "sd", "--variant", "sd15", "--num_frames", str(NF), "--height", str(PX),
+        "--width", str(PX), "--time_steps", str(STEPS), "--smoother", "pixel",
+        "--content_path", os.path.join(ex, "contents", "demo-fly"),
+        "--style_path", os.path.join(ex, "styles", "00033.png"),
+        "--mask_path", os.path.join(ex, "masks", "demo-fly.png")])
+    print(f"[nccl] smoother {_cards()}: {out}")
+    assert out["masks_equal_min"] >= 0.995
+    assert out["stylized_psnr_db_min"] >= 30.0
+
+    path = os.path.join(str(tmp_path), "smooth_census.pt")
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=4",
+                          f"--master_port={_free_port()}", os.path.abspath(__file__), path,
+                          "smooth_census"], cwd=REPO, capture_output=True, text=True,
+                         timeout=900)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    for rank in range(4):
+        got = torch.load(f"{path}.{rank}", weights_only=False)
+        print(f"[nccl] smoothing-step census, rank {rank}: {got}")
+        assert got["profiler"] == got["census"], got
+        assert got["by_site"]["all_to_all:smooth_halo"]["count"] == 1, got
+
+
+@pytest.mark.cuda
 def test_sd3_forward_pair_over_nccl_matches_one_card(tmp_path):
     """The SD3 forward check over NCCL on ``data=2,tensor=2`` (the tensor
     all-reduce and K2's halo on the card's collectives) against one card."""
@@ -303,4 +392,5 @@ def test_sd3_forward_pair_over_nccl_matches_one_card(tmp_path):
 
 
 if __name__ == "__main__":
-    (forward_pair_sd3 if sys.argv[2:] == ["sd3"] else forward_pair)(sys.argv[1])
+    {"sd3": forward_pair_sd3, "smooth_census": smooth_census}.get(
+        (sys.argv[2:] or [""])[0], forward_pair)(sys.argv[1])

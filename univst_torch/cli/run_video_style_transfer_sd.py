@@ -6,7 +6,8 @@ Loads both inversion trajectories, AdaIN-shifts the initial noise
 runs the stylization loop with optional localized masking, and writes
 per-frame PNGs to {out}/{backbone}/{content}_{style}/. Runs on CUDA unless
 ``--platform cpu``; frame-parallel under ``torchrun`` with ``--mesh data=N``
-(rank 0 writes)."""
+(rank 0 writes), the pixel smoother (``--smoother pixel``, LK or RAFT flow)
+included."""
 
 from __future__ import annotations
 
@@ -39,11 +40,13 @@ def main(args):
     if raft:
         import dataclasses
 
+        from univst_torch.distributed.mesh import replicate
         from univst_torch.models.convert import load_raft
         from univst_torch.models.raft import make_raft_flow
 
-        pipe = dataclasses.replace(
-            pipe, flow_fn=make_raft_flow(load_raft(args.raft_ckpt).to(pipe.device)))
+        # under --mesh every rank runs rank 0's RAFT on its own keys' pairs
+        raft_model = replicate(load_raft(args.raft_ckpt).to(pipe.device), pipe.mesh)
+        pipe = dataclasses.replace(pipe, flow_fn=make_raft_flow(raft_model))
     # trajectories ordered so index i holds latents at inversion step N-i
     content_rev = load_trajectory(args.content_inv_path, args.time_steps, reverse=True,
                                   device=pipe.device)

@@ -52,9 +52,13 @@ def summarize(records: List[Record], by_site: bool = False) -> Dict[str, dict]:
 
 def profiler_collectives(prof) -> Counter:
     """Collectives by name in a finished ``torch.profiler.profile``: its
-    ``nccl:<op>`` or ``gloo:<op>`` ranges (one per collective call)."""
+    host-side ``nccl:<op>`` or ``gloo:<op>`` ranges, one per collective
+    call. A trace with CUDA activity also holds each NCCL range's copy on
+    the device timeline (a GPU user annotation), which is not counted."""
+    from torch.autograd import DeviceType
+
     return Counter(e.name for e in prof.events()
-                   if e.name.startswith(("nccl:", "gloo:")))
+                   if e.name.startswith(("nccl:", "gloo:")) and e.device_type == DeviceType.CPU)
 
 
 def profiler_ops(prof) -> Counter:

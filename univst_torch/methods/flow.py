@@ -9,6 +9,10 @@ one is a coarse-to-fine iterative Lucas-Kanade pyramid, and
 ``univst_torch.models.raft.make_raft_flow`` plugs RAFT in behind the same
 interface.
 
+Under a mesh the smoother runs on a rank's frames (``sliding_window_smooth``'s
+``shard``): one all-to-all brings the +/-radius frames its keys read, and
+the rank runs only its own keys' flows.
+
 The API keeps the JAX package's layout: images ``[H, W, C]`` (or ``[H, W]``
 gray) fp32 in [0, 1], flow ``[H, W, 2]`` holding (dx, dy) pixel offsets
 (sampling position = grid + flow, cal_optica_flow.py:31-41); each function
@@ -172,8 +176,28 @@ def lucas_kanade_flow(image1, image2, levels: int = 4, window: int = 7, iters: i
 # ---------------------------------------------------------------------------
 
 
+def _frame_window(frames, shard, radius: int):
+    """A rank's frames with the +/-``radius`` frames around its shard that
+    its keys read, clipped to the clip: one all-to-all (``comm.frame_halo``,
+    site ``smooth_halo``) brings the global frames ``[o - radius, o)`` and
+    ``[o + f, o + f + radius)`` from whichever ranks hold them (more than
+    one neighbour when ``f < radius``). Returns the ``[lo, hi)`` window of
+    global frames and ``lo``."""
+    from univst_torch.distributed.comm import frame_halo
+
+    n, f, nf, off = shard.mesh.n_data, shard.local, shard.num_frames, shard.offset
+
+    def reads(o):
+        return tuple(g for g in (*range(o - radius, o), *range(o + f, o + f + radius))
+                     if 0 <= g < nf)
+
+    got = frame_halo(frames[None], shard, [reads(r * f) for r in range(n)], "smooth_halo")[0]
+    before = sum(1 for g in reads(off) if g < off)
+    return torch.cat([got[:before], frames, got[before:]]), off - before
+
+
 def sliding_window_smooth(frames, flow_fn: Callable = lucas_kanade_flow, radius: int = 2,
-                          mask: Optional[torch.Tensor] = None):
+                          mask: Optional[torch.Tensor] = None, shard=None):
     """Sliding-window warp-and-average over frames (reference smoother,
     stable_diffusion.py:716-751).
 
@@ -185,24 +209,36 @@ def sliding_window_smooth(frames, flow_fn: Callable = lucas_kanade_flow, radius:
     object region keeps the original frames (stable_diffusion.py:751).
 
     ``frames [F, H, W, C]`` in [0, 1] -> ``[F, H, W, C]``.
+
+    Under a frame ``shard`` (a ``distributed.comm.FrameShard``) ``frames``
+    and ``mask`` are the rank's ``f`` frames of the clip and the result is
+    the rank's: the +/-radius frames its keys read come from the other
+    ranks in one all-to-all (:func:`_frame_window`), the rank runs the
+    flows of its own keys' pairs only (``0 <= k + b < F`` in global frames),
+    and each key's divisor is its window at its global position (the clip's
+    edges truncate a window, a rank's edges do not).
     """
     f, dev = frames.shape[0], frames.device
+    nf, off = (f, 0) if shard is None else (shard.num_frames, shard.offset)
     window = range(-radius, radius + 1)
-    keys = {b: [k for k in range(f) if 0 <= k + b < f] for b in window if b}
+    # ext[g - lo] is global frame g
+    ext, lo = (frames, 0) if shard is None else _frame_window(frames, shard, radius)
+    keys = {b: [k for k in range(off, off + f) if 0 <= k + b < nf] for b in window if b}
     pairs = [(k, k + b) for b, ks in keys.items() for k in ks]
     if pairs:
-        key = torch.tensor([k for k, _ in pairs], device=dev)
-        now = torch.tensor([j for _, j in pairs], device=dev)
-        warped = get_warp(flow_fn, frames[key], frames[now], frames[key], frames[now])
+        key = torch.tensor([k - lo for k, _ in pairs], device=dev)
+        now = torch.tensor([j - lo for _, j in pairs], device=dev)
+        warped = get_warp(flow_fn, ext[key], ext[now], ext[key], ext[now])
     acc, start = torch.zeros_like(frames), 0
     for b in window:
         if b == 0:
             acc = acc + frames
         elif keys[b]:
             n = len(keys[b])
-            acc = acc.index_add(0, torch.tensor(keys[b], device=dev), warped[start:start + n])
+            acc = acc.index_add(0, torch.tensor([k - off for k in keys[b]], device=dev),
+                                warped[start:start + n])
             start += n
-    weight = torch.tensor([sum(0 <= k + b < f for b in window) for k in range(f)],
+    weight = torch.tensor([sum(0 <= k + b < nf for b in window) for k in range(off, off + f)],
                           dtype=frames.dtype, device=dev)
     smoothed = acc / weight[:, None, None, None]
     if mask is not None:

@@ -266,10 +266,17 @@ class SDVideoPipeline(FrameParallel):
     @torch.inference_mode()
     def _decode(self, latents, num_frames: int):
         shard = self._frame_shard(num_frames)
-        latents = self._shard(latents, num_frames=num_frames)
+        px = self._decode_local(self._shard(latents, num_frames=num_frames), shard)
+        return self._gather(px, shard)
+
+    def _decode_local(self, latents, shard: Optional[FrameShard]):
+        """The rank's latents ``[f, h, w, 4]`` -> its frames ``[f, H, W, 3]`` in
+        [0, 1]: the temporal decoder reads the neighbour ranks' frames
+        through its halos (``models/vae.py::_time_conv``); no shard: the
+        whole clip."""
         z = (latents.to(self.device).float() / self.vae.cfg.scaling_factor).to(self.dtype)
-        px = self.vae.decode(z, num_frames if shard is None else shard.local, shard)
-        return self._gather(torch.clamp(px.float() / 2.0 + 0.5, 0.0, 1.0), shard)
+        px = self.vae.decode(z, latents.shape[0], shard)
+        return torch.clamp(px.float() / 2.0 + 0.5, 0.0, 1.0)
 
     def decode_latents(self, latents):
         """latents [F, h, w, 4] -> frames [F, H, W, 3] in [0, 1] (reference
@@ -388,7 +395,11 @@ class SDVideoPipeline(FrameParallel):
 
         Under a mesh the trajectories (frame axis 1), the initial latents and
         the mask (axis 0) are sharded, the text context replicated; the
-        singleton style pre-pass runs replicated on every rank.
+        singleton style pre-pass runs replicated on every rank. A smoothing
+        step runs frame-parallel too: each rank decodes its own frames,
+        fetches the +/-radius decoded frames its keys read from the other
+        ranks in one all-to-all, runs the flows of its own keys' pairs and
+        encodes its own smoothed frames.
         """
         scfg = style_cfg if style_cfg is not None else self.style_shift_cfg
         n = cfg.num_steps
@@ -402,8 +413,6 @@ class SDVideoPipeline(FrameParallel):
         context3 = self._replicated(context3.to(dev))
         if cfg.smoother not in (None, "pixel"):
             raise ValueError(f"smoother {cfg.smoother!r}: use None or 'pixel'")
-        if cfg.smoother is not None and shard is not None:
-            raise NotImplementedError("the pixel smoother does not run frame-parallel yet")
 
         window_end = scfg.window_end()
         if cfg.smoother is not None:
@@ -543,12 +552,19 @@ class SDVideoPipeline(FrameParallel):
         decoder over all F frames), warp-average a +/-radius window of
         frames by optical flow (``methods/flow.py``) with the masked object
         region kept, re-encode (the posterior mean) and turn the smoothed
-        x0 back into the eps that reaches it from x_t."""
+        x0 back into the eps that reaches it from x_t.
+
+        Under a mesh ``eps``, ``latents`` and ``mask`` are the rank's frames,
+        and so is the result: the rank decodes its frames (the decoder's
+        temporal halos), smooths them (``sliding_window_smooth``'s shard
+        form) and encodes them (the encoder is per frame); nothing is
+        gathered."""
+        shard = self._frame_shard()
         x0 = self.schedule.pred_original(eps, t, latents)
-        px = self._decode(x0, self.num_frames)
+        px = self._decode_local(x0, shard)
         px = flow.sliding_window_smooth(px, self.flow_fn or flow.lucas_kanade_flow,
                                         radius=cfg.smoother_radius,
-                                        mask=None if mask is None else mask.float())
+                                        mask=None if mask is None else mask.float(), shard=shard)
         mean, _ = self.vae.encode((px * 2.0 - 1.0).to(self.dtype))
         return self.schedule.return_to_timestep(t, latents,
                                                 mean.float() * self.vae.cfg.scaling_factor)
