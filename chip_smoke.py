@@ -32,6 +32,12 @@ none catches its own failure:
    (style pre-pass, injected 2-branch phase, stylized-only phase) and the
    chunked temporal-VAE decode, plus the inversion -> reconstruction round
    trip. K1 must launch 10 times per 16-frame UNet forward, K2 never.
+   Then ``[bench]``: the headline bench's own summary
+   (``univst_torch.bench.summarize``, ``headline``) of that run: its
+   stylize + decode and inversion seconds, its round trip's latent PSNR and
+   one more stylization of its inputs under the FLOP counter; its JSON line
+   (``bench.py``'s keys and the card's) on a ``[bench]`` line, every number
+   finite, 0 < MFU <= 1.05, K1 10 x steps a stylization, K2 never.
 5. SD-1.5 fallback: the same pipeline and trajectories, stylized once off
    the style-singleton path (capture-and-inject, what the transfer CLI
    falls back to on a style trajectory whose frames differ), with the
@@ -104,7 +110,7 @@ none catches its own failure:
    heads, 12 of 24 and 19 of 38, with a planted slot-table shift). Then
    jobs of 2 or 4 ranks (``torch.multiprocessing`` spawn, gloo over a file
    store, every rank on ``cuda:0``, a process-group timeout of 300 s):
-   SD-1.5 bf16 at 512 px / 16 frames / 10 steps over 2 ranks; SD-1.5 fp32
+   SD-1.5 bf16 at 512 px / 16 frames / 6 steps over 2 ranks; SD-1.5 fp32
    at 256 px / 8 frames / 6 steps over 2 and 4 ranks; AnimateDiff-v2 bf16
    at 512 px / 16 frames / 6 steps over 2 ranks; each against a
    one-process run at its steps (``MESH_JOBS``). Each rank prints its stage
@@ -148,9 +154,9 @@ none catches its own failure:
 
 Each path's launch counters are zeroed just before it and read just after;
 a kernel's ``launches`` in the JSON line is the sum over its paths, each
-path's own count under ``launches_by_path`` (K1: the SD, SD-fallback,
-smoother, profile, mesh and mesh_smooth paths; K2: SD3-medium, SD3.5-medium,
-SD3.5-large, profile, mesh and mesh_sd3). The last line is ``{"ok": true,
+path's own count under ``launches_by_path`` (K1: the SD, bench,
+SD-fallback, smoother, profile, mesh and mesh_smooth paths; K2: SD3-medium,
+SD3.5-medium, SD3.5-large, profile, mesh and mesh_sd3). The last line is ``{"ok": true,
 "device": {...}}``; the lines before it hold the per-kernel JSON and the
 card's name and power limit. Any failed check exits non-zero. ``--steps``
 (SD-1.5) and ``--ad_steps`` default to 30 and ``--sd3_steps`` (SD3-medium)
@@ -160,6 +166,7 @@ is the full workload. ``--sd35l_steps`` and ``SD35M_STEPS`` are 8, cut to
 keep the script within its time limit: SD3.5-large and SD3.5-medium run
 the 2-branch stylization phase only (the stylized-only forward has the
 reconstruction forward's shape; SD3-medium runs it at the same widths).
+Each phase's seconds and the script's so far print on a ``[clock]`` line.
 """
 
 from __future__ import annotations
@@ -710,7 +717,54 @@ def phase_main_path(steps: int):
                    masks_foreground=float((masks > 0).float().mean().item()),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"[main] {json.dumps(summary)}", flush=True)
-    return launches, (pipe, traj, straj, w["ctx"], masks, out)
+    return launches, (pipe, traj, straj, w["ctx"], masks, out), dict(stage=stage, psnr=psnr)
+
+
+def _finite_numbers(tree, path="") -> list:
+    """The paths of the numbers in a JSON tree that are missing or not
+    finite (None counts as missing)."""
+    import math
+
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _finite_numbers(v, f"{path}.{k}")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in _finite_numbers(v, f"{path}[{i}]")]
+    if tree is None or (isinstance(tree, float) and not math.isfinite(tree)):
+        return [path]
+    return []
+
+
+def phase_bench(sd_state, main: dict, steps: int):
+    """The headline bench's own code (``univst_torch.bench``) on ``[main]``'s
+    run: its stylize + decode and content-inversion seconds (first calls,
+    so cold) and its round trip's latent PSNR, with one more stylization of
+    its inputs under the FLOP counter, the one run this phase adds. Gated:
+    every key present and finite, 0 < MFU <= 1.05, K1 10 launches a step of
+    the counted stylization and K2 none."""
+    from univst_torch import bench
+
+    pipe, traj, straj, ctx, masks, _ = sd_state
+    stage = main["stage"]
+    counters = _zero_counters()
+    info = bench.device_info(pipe.device)
+    m = bench.summarize(lambda: _stylize(pipe, "sd", traj, straj, ctx, masks, steps),
+                        pipe.num_frames, steps, [stage["stylize"] + stage["decode"]],
+                        stage["content_inversion"], main["psnr"],
+                        bench.peak_tflops(info["name"]), pipe.device)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    line = bench.headline(m, steps, 512, info, on_card=True)
+    print("[bench] " + json.dumps(line), flush=True)
+    missing = _finite_numbers(line)
+    if missing:
+        raise AssertionError(f"bench: missing or non-finite {missing}")
+    if not 0 < line["extra"]["mfu"] <= 1.05:
+        raise AssertionError(f"bench: MFU {line['extra']['mfu']}")
+    if (m["k1_launches"], m["k2_launches"]) != (10 * steps, 0):
+        raise AssertionError(f"bench: K1 / K2 launches a stylization {m['k1_launches']} / "
+                             f"{m['k2_launches']}, want {10 * steps} / 0")
+    _check_launches(launches, {"video_flash_attention": 10 * steps,
+                               "video_flash_attention_tokens": 0})
+    return launches
 
 
 def phase_sd_fallback(sd_state, steps: int):
@@ -1242,8 +1296,10 @@ MESH_JOBS = {
     # name: backbone, dtype, px, frames, ranks, steps (each job against a
     # one-card run at its steps; the bf16 jobs' steps cut from 30 (SD) and
     # 10 (AD) to keep the script within its time limit: with its fp32 floor
-    # and stage-fed rerun, the AD job takes 175 s at 10 steps on the card)
-    "sd_bf16_2": ("sd", "bf16", 512, 16, 2, 10),
+    # and stage-fed rerun, the AD job takes 175 s at 10 steps on the card;
+    # the SD job's 10 then to 6, which still hold [mesh] smooth's smoothing
+    # steps [4, 6), when the script with [bench] took 1218 s)
+    "sd_bf16_2": ("sd", "bf16", 512, 16, 2, 6),
     "sd_fp32_2": ("sd", "fp32", 256, 8, 2, 6),
     "sd_fp32_4": ("sd", "fp32", 256, 8, 4, 6),
     "ad_bf16_2": ("ad", "bf16", 512, 16, 2, 6),
@@ -2487,37 +2543,47 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = phase_device()
-    phase_build()
-    cases, tokens = phase_kernels()
-    sd_launches, sd_state = phase_main_path(args.steps)
-    fallback_launches = phase_sd_fallback(sd_state, args.steps)
-    phase_sd_linear_betas(sd_state, args.steps)
-    phase_lk_shift()
-    smooth_launches, smooth_frames = phase_smooth(sd_state, args.steps)
-    profile_launches = phase_profile_sd(sd_state, args.steps)
+    t_start = time.time()
+
+    def clock(name, fn, *a):
+        t0 = time.time()
+        out = fn(*a)
+        print(f"[clock] {name}: {time.time() - t0:.1f}s (script {time.time() - t_start:.1f}s)",
+              flush=True)
+        return out
+
+    smi = clock("device", phase_device)
+    clock("build", phase_build)
+    cases, tokens = clock("kernels", phase_kernels)
+    sd_launches, sd_state, main_run = clock("main", phase_main_path, args.steps)
+    bench_launches = clock("bench", phase_bench, sd_state, main_run, args.steps)
+    fallback_launches = clock("sd_fallback", phase_sd_fallback, sd_state, args.steps)
+    clock("sd_linear_betas", phase_sd_linear_betas, sd_state, args.steps)
+    clock("lk", phase_lk_shift)
+    smooth_launches, smooth_frames = clock("smooth", phase_smooth, sd_state, args.steps)
+    profile_launches = clock("profile_sd", phase_profile_sd, sd_state, args.steps)
     del sd_state
     torch.cuda.empty_cache()
-    phase_raft(smooth_frames)
+    clock("raft", phase_raft, smooth_frames)
     del smooth_frames
     torch.cuda.empty_cache()
-    phase_ad(args.ad_steps)
+    clock("ad", phase_ad, args.ad_steps)
     torch.cuda.empty_cache()
-    sd3_launches = {"sd3": phase_sd3("sd3", args.sd3_steps)[0]}
+    sd3_launches = {"sd3": clock("sd3", phase_sd3, "sd3", args.sd3_steps)[0]}
     torch.cuda.empty_cache()
-    sd3_launches["sd35m"], sd35m_state = phase_sd3("sd35m", SD35M_STEPS)
-    for k, v in phase_profile_sd35m(sd35m_state).items():
+    sd3_launches["sd35m"], sd35m_state = clock("sd35m", phase_sd3, "sd35m", SD35M_STEPS)
+    for k, v in clock("profile_sd35m", phase_profile_sd35m, sd35m_state).items():
         profile_launches[k] += v
     del sd35m_state
     torch.cuda.empty_cache()
-    sd3_launches["sd35l"], _ = phase_sd3("sd35l", args.sd35l_steps)
+    sd3_launches["sd35l"], _ = clock("sd35l", phase_sd3, "sd35l", args.sd35l_steps)
     torch.cuda.empty_cache()
-    mesh_launches, shard_cases, shard_tokens = phase_mesh()
+    mesh_launches, shard_cases, shard_tokens = clock("mesh", phase_mesh)
     torch.cuda.empty_cache()
-    mesh_sd3_launches = phase_mesh_sd3()
+    mesh_sd3_launches = clock("mesh_sd3", phase_mesh_sd3)
 
-    k1_paths = {"sd": sd_launches, "sd_fallback": fallback_launches, "smooth": smooth_launches,
-                "profile": profile_launches, **mesh_launches}
+    k1_paths = {"sd": sd_launches, "bench": bench_launches, "sd_fallback": fallback_launches,
+                "smooth": smooth_launches, "profile": profile_launches, **mesh_launches}
     k1_paths = {k: v["video_flash_attention"] for k, v in k1_paths.items()}
     k2_paths = dict(sd3_launches, profile=profile_launches, **mesh_launches,
                     mesh_sd3=mesh_sd3_launches)

@@ -15,8 +15,23 @@ capture.
 Tolerances: relative 1e-3 of the max against JAX (two fp32 frameworks over
 the DDIM steps, as ``test_torch_pipeline.py`` states it); 1e-5 between two
 paths of the port (the same arithmetic on batches of other sizes).
+
+The captured feature has a float64 referee: the port's own modules in
+float64 (``ad_pipe64``; its DDIM updates stay fp32, ~1e-7). At 64 px the
+tiny UNet's lowest levels are 1x1, where every motion module's GroupNorm
+(32 groups of 64 channels) normalizes groups of 2 values; a group whose two
+values nearly coincide (variance ~1e-7 against eps 1e-6) turns any rounding
+of its input into ~1e3 times as much output. The JAX GroupNorm's one-pass
+variance, E[x^2] - E[x]^2 in fp32 (univst_tpu/models/layers.py:163-170),
+loses such a variance outright, and how far that carries into the feature
+depends on the host's XLA CPU code (ROADMAP queue 3). So the feature is
+held to the float64 run at 1e-4, and to JAX at 1e-3 plus JAX's own
+distance from the float64 run, measured in the test; that distance is itself
+capped at 5e-3 (readings on an x86 CPU host: the feature 5.50e-5 from
+float64 in the port, 1.507e-3 in JAX; the trajectory 9.7e-6 / 2.27e-4).
 """
 
+import copy
 import dataclasses
 
 import jax.numpy as jnp
@@ -57,6 +72,16 @@ def ad_pipes():
     return jp, tp
 
 
+@pytest.fixture(scope="module")
+def ad_pipe64(ad_pipes):
+    """The port's pipeline with the same weights in float64 (UNet and text
+    encoder): the referee of the fp32 runs."""
+    _, tp = ad_pipes
+    return dataclasses.replace(tp, unet=copy.deepcopy(tp.unet).double(),
+                               text_encoder=copy.deepcopy(tp.text_encoder).double(),
+                               dtype=torch.float64)
+
+
 def _shift(mode, n=N):
     """Shift constants scaled to ``n`` steps, so both phases run."""
     from univst_tpu.core.config import StyleShiftConfig as JShift
@@ -77,7 +102,7 @@ def _stylize_inputs(seed, n=N):
     return content, style, mask
 
 
-def test_ad_invert_and_reconstruct_match_jax(ad_pipes):
+def test_ad_invert_and_reconstruct_match_jax(ad_pipes, ad_pipe64):
     jp, tp = ad_pipes
     lat0 = np.random.default_rng(0).standard_normal((F, H8, H8, 4)).astype(np.float32)
     cap_t = int(jp.schedule.timesteps(N)[::-1][2])
@@ -86,9 +111,23 @@ def test_ad_invert_and_reconstruct_match_jax(ad_pipes):
                              capture_timestep=cap_t)
     ttraj, tfeat = tp.invert(torch.tensor(lat0), tctx, num_steps=N, is_opt=True,
                              capture_timestep=cap_t)
+    rtraj, rfeat = ad_pipe64.invert(torch.tensor(lat0), ad_pipe64.encode_text(""), num_steps=N,
+                                    is_opt=True, capture_timestep=cap_t)
+    assert rfeat.dtype == torch.float64
+    print(f"feature from float64: port {rel_err(tfeat, rfeat):.3e} jax {rel_err(jfeat, rfeat):.3e};"
+          f" trajectory: port {rel_err(ttraj, rtraj):.3e} jax {rel_err(jtraj, rtraj):.3e};"
+          f" feature port from jax {rel_err(tfeat, jfeat):.3e}")
     assert ttraj.shape == jtraj.shape == (N + 1, F, H8, H8, 4)
     assert rel_err(ttraj, jtraj) < 1e-3
-    assert tfeat.shape == jfeat.shape and rel_err(tfeat, jfeat) < 1e-3
+    # the referee itself agrees with JAX where JAX is well conditioned
+    assert rel_err(rtraj, jtraj) < 1e-3
+    assert rel_err(ttraj, rtraj) < 1e-4
+    assert tfeat.shape == jfeat.shape == rfeat.shape
+    assert rel_err(tfeat, rfeat) < 1e-4
+    assert rel_err(tfeat, jfeat) < 1e-3 + rel_err(jfeat, rfeat)
+    # JAX's own distance from the referee is bounded too: a feature captured
+    # in the wrong place (in either package) is an O(1) miss, not rounding
+    assert rel_err(jfeat, rfeat) < 5e-3
     jrec = jp.reconstruct_latents(jtraj[-1], jctx, num_steps=N)
     trec = tp.reconstruct_latents(torch.tensor(np.asarray(jtraj[-1])), tctx, num_steps=N)
     assert rel_err(trec, jrec) < 1e-3
@@ -185,3 +224,60 @@ def test_ad_round_trip_psnr_is_the_jax_packages(ad_pipes):
     want = psnr(jp.reconstruct_latents(jtraj[-1], jctx, num_steps=N))
     got = psnr(tp.reconstruct_latents(ttraj[-1], tctx, num_steps=N))
     assert np.isfinite(want) and abs(got - want) < 0.01
+
+
+def _motion_norm_readings(ad_pipes, ad_pipe64):
+    """Every motion module's GroupNorm at the feature-capture step of the
+    float64 inversion: fed that run's input rounded to fp32, the port's and
+    the JAX package's GroupNorm against the float64 one (relative to its
+    max), with the group size and the smallest group variance."""
+    from univst_tpu.models.layers import GroupNorm as JGroupNorm
+    from univst_torch.models.layers import VideoCtx
+
+    jp, tp = ad_pipes
+    lat0 = np.random.default_rng(0).standard_normal((F, H8, H8, 4)).astype(np.float32)
+    cap_t = int(jp.schedule.timesteps(N)[::-1][2])
+    ctx64 = ad_pipe64.encode_text("")
+    rtraj, _ = ad_pipe64.invert(torch.tensor(lat0), ctx64, num_steps=N, is_opt=True,
+                                capture_timestep=cap_t)
+    mods32, mods64 = dict(tp.unet.named_modules()), dict(ad_pipe64.unet.named_modules())
+    names = [n for n in mods32 if n.endswith("temporal_transformer.norm")]
+    inputs = {}
+    hooks = [mods64[n].register_forward_pre_hook(lambda m, a, n=n: inputs.setdefault(n, a[0]))
+             for n in names]
+    try:
+        with torch.inference_mode():
+            ad_pipe64.unet(rtraj[2].double(), cap_t, ctx64,
+                           VideoCtx(num_frames=F, frame_indices=()), None)
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = []
+    for n in names:
+        x64, m32 = inputs[n], mods32[n]
+        with torch.inference_mode():
+            want = mods64[n](x64).permute(0, 2, 3, 1)
+            got = m32(x64.float()).permute(0, 2, 3, 1)
+        params = {"scale": jnp.asarray(m32.weight.numpy()), "bias": jnp.asarray(m32.bias.numpy())}
+        jgot = JGroupNorm(num_groups=m32.num_groups, eps=m32.eps).apply(
+            {"params": params}, jnp.asarray(x64.float().permute(0, 2, 3, 1).numpy()))
+        groups = x64.reshape(x64.shape[0], m32.num_groups, -1)
+        rows.append(dict(name=n, group_size=groups.shape[-1],
+                         min_var=groups.var(-1, unbiased=False).min().item(),
+                         port=rel_err(got, want), jax=rel_err(jgot, want)))
+    return rows
+
+
+def test_ad_group_norm_two_value_groups_against_f64(ad_pipes, ad_pipe64):
+    """The port's GroupNorm (two-pass ``torch.var_mean``) stays within 1e-4
+    of float64 at every motion module of the capture-step forward, the 2-value
+    groups of the 1x1 levels included; the JAX package's is printed (the
+    bisection in ROADMAP queue 3: ``python -m pytest
+    tests/test_torch_ad_pipeline.py -s -k two_value_groups``)."""
+    rows = _motion_norm_readings(ad_pipes, ad_pipe64)
+    assert min(r["group_size"] for r in rows) == 2
+    for r in rows:
+        print(f"{r['name']:56s} group {r['group_size']:3d} min var {r['min_var']:.2e} "
+              f"jax {r['jax']:.3e} port {r['port']:.3e}")
+        assert r["port"] < 1e-4, r
+

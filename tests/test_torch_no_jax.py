@@ -43,7 +43,8 @@ def test_every_module_imports_without_jax():
     assert {"univst_torch.utils.profiling", "univst_torch.utils.flops",
             "univst_torch.models.lora", "univst_torch.models.sparse_controlnet",
             "univst_torch.distributed.mesh", "univst_torch.distributed.comm",
-            "univst_torch.distributed.census", "univst_torch.distributed.tp"} <= set(mods)
+            "univst_torch.distributed.census", "univst_torch.distributed.tp",
+            "univst_torch.bench"} <= set(mods)
     code = ("import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -64,6 +65,13 @@ def test_cli_help_without_jax(cli):
                f"runpy.run_module('univst_torch.cli.{cli}', run_name='__main__')")
     assert res.returncode == 0, res.stderr
     assert "usage:" in res.stdout
+
+
+def test_bench_help_without_jax():
+    res = _run("import runpy; sys.argv = ['x', '--help']; "
+               "runpy.run_module('univst_torch.bench', run_name='__main__')")
+    assert res.returncode == 0, res.stderr
+    assert "--families" in res.stdout
 
 
 def test_no_source_imports_jax_or_the_jax_package():

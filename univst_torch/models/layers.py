@@ -116,7 +116,8 @@ class GroupNorm(nn.Module):
     resnet.py:274-296): ``across_frames=True`` reproduces that on the
     frames-in-batch layout, where a bare ``nn.GroupNorm`` would normalize each
     frame alone. ``across_frames=False`` is the per-frame form of the
-    transformer blocks and the VAE. Statistics and affine run in fp32.
+    transformer blocks and the VAE. Statistics and affine run in fp32 (float64
+    on a float64 input: the parity tests' referee).
     Under a frame ``shard`` the frame-spanning statistics combine every
     rank's (``comm.sharded_var_mean``).
     """
@@ -133,7 +134,7 @@ class GroupNorm(nn.Module):
     def forward(self, x, num_frames: int = 1, shard=None):
         n, c = x.shape[:2]
         g = self.num_groups
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         shard = shard if self.across_frames else None
         if self.across_frames and (num_frames > 1 or shard is not None):
             xg = xf.reshape(n // num_frames, num_frames, g, c // g, -1)
@@ -149,7 +150,7 @@ class GroupNorm(nn.Module):
             var, mean = sharded_var_mean(xg, dims, shard, site="group_norm")
         xn = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
         shape = (1, c) + (1,) * (x.dim() - 2)
-        out = xn * self.weight.float().reshape(shape) + self.bias.float().reshape(shape)
+        out = xn * self.weight.to(xf.dtype).reshape(shape) + self.bias.to(xf.dtype).reshape(shape)
         return out.to(x.dtype)
 
 
