@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SD-1.5 (with and without the pixel smoother),
-AnimateDiff-v2, SD3-medium, SD3.5-medium and SD3.5-large workflows on one
-NVIDIA GPU, profile three of its forwards, and run the SD-1.5 and
+SD-2.1, AnimateDiff-v2, SD3-medium, SD3.5-medium and SD3.5-large workflows
+on one NVIDIA GPU, profile three of its forwards, and run the SD-1.5 and
 AnimateDiff workflows frame-parallel, and SD3 on a ``data x tensor`` mesh,
 as ranks that share the card.
 
@@ -22,8 +22,10 @@ none catches its own failure:
    least time for the work (bound: the largest of tensor-core FLOPs, the
    exponentials on the MUFU and the FMA pipe together, and bytes, from
    ``univst_torch.attention.video_flash.work``; each term on a ``[bound]``
-   line). K1 is the head-major video flash attention of the SD UNet, K2 the
-   token-major one of the SD3 MMDiT (24 heads; 38 for SD3.5-large). Then
+   line). K1 is the head-major video flash attention of the SD UNet (SD-1.5:
+   8 heads of 40 and 80; SD-2.1: 5 and 10 heads of 64, each row with its
+   planted fault), K2 the token-major one of the SD3 MMDiT (24 heads; 38
+   for SD3.5-large, and a ``tensor=4`` rank's 10 or 9 of them). Then
    the host's cost of one wrapper call against the bare launch
    (``[dispatch]``).
 4. SD-1.5 path: ``SDVideoPipeline`` (SD-1.5 widths, 512 px, 16 frames,
@@ -37,7 +39,11 @@ none catches its own failure:
    stylize + decode and inversion seconds, its round trip's latent PSNR and
    one more stylization of its inputs under the FLOP counter; its JSON line
    (``bench.py``'s keys and the card's) on a ``[bench]`` line, every number
-   finite, 0 < MFU <= 1.05, K1 10 x steps a stylization, K2 never.
+   finite, 0 < MFU <= 1.05, K1 10 x steps a stylization, K2 never. After
+   the profile (10.), ``[sd21]``: the same path and gates with SD-2.1
+   (``variant='sd21'``: heads of 64 at every level, linear ``proj_in`` /
+   ``proj_out``, the 1024-wide OpenCLIP-H context; K1 at H = 5 and 10,
+   dh = 64), its stage seconds and its own peak memory.
 5. SD-1.5 fallback: the same pipeline and trajectories, stylized once off
    the style-singleton path (capture-and-inject, what the transfer CLI
    falls back to on a style trajectory whose frames differ), with the
@@ -72,7 +78,7 @@ none catches its own failure:
    with every ``proj_out`` back at zero (the reference's init: the motion
    modules are identities), the round-trip PSNR on the same latents and
    prompt along a ladder that turns the AD UNet into the SD path's UNet one
-   difference at a time (``[ad_psnr]``).
+   difference at a time (``[ad_psnr]``, ``AD_PSNR_STEPS`` = 10 steps).
 9. SD3 paths: ``SD3VideoPipeline`` at full width (bf16, seeded random
    weights, T5-XXL, CLIP-L and CLIP-G, the 16-channel VAE), 1024 px, 16
    frames: prompt encoding (then the text encoders are freed), VAE encode,
@@ -150,15 +156,20 @@ none catches its own failure:
    above (``_forward_pair_sd3``: the inversion forward and the injected
    2-branch forward with its single-frame capture); K2 launches 4 x
    (blocks + dual blocks) x steps a rank; the census per forward (halo
-   all-to-alls, all-reduces and their MB).
+   all-to-alls, all-reduces and their MB). Then ``[mesh_sd3 tp]``
+   (``SD3_TP_FORWARD``): the forward pair of SD3.5-large's MMDiT alone
+   (38 heads of 64, depth cut to 4 of its 38 blocks), 512 px, 4 frames, on
+   ``data=1,tensor=4`` (10, 10, 9 and 9 heads a rank) against one card,
+   gated the same way.
 
 Each path's launch counters are zeroed just before it and read just after;
 a kernel's ``launches`` in the JSON line is the sum over its paths, each
-path's own count under ``launches_by_path`` (K1: the SD, bench,
+path's own count under ``launches_by_path`` (K1: the SD, SD-2.1, bench,
 SD-fallback, smoother, profile, mesh and mesh_smooth paths; K2: SD3-medium,
-SD3.5-medium, SD3.5-large, profile, mesh and mesh_sd3). The last line is ``{"ok": true,
-"device": {...}}``; the lines before it hold the per-kernel JSON and the
-card's name and power limit. Any failed check exits non-zero. ``--steps``
+SD3.5-medium, SD3.5-large, profile, mesh, mesh_sd3 and mesh_sd3_tp). The
+last line is ``{"ok": true, "device": {...}}``; the lines before it hold
+the per-kernel JSON and the card's name and power limit. Any failed check
+exits non-zero. ``--steps``
 (SD-1.5) and ``--ad_steps`` default to 30 and ``--sd3_steps`` (SD3-medium)
 to 32: the fewest that run both stylization phases (the shift windows of
 the 50-step constants close after step 25 (SD), 24 (AD) and 30 (SD3)); 50
@@ -289,8 +300,9 @@ def _err_over_tol(got, want) -> float:
 def _vfa_case(b, f, h, l, dh, idx, dtype, lq=None, lc=None, ctx_valid=None, reps=5,
               plant=False):
     """Kernel vs plain (and SDPA on the expanded K/V) on one shape. With
-    ``plant``, also run the kernel with the scale of the padded depth (a
-    plausible fault) and require the same check to reject it."""
+    ``plant``, also run the kernel with the scale of the next 16-deep MMA
+    step above ``dh`` (a plausible fault: 48 at dh = 40, 80 at dh = 64) and
+    require the same check to reject it."""
     import torch
     import torch.nn.functional as F
 
@@ -321,7 +333,7 @@ def _vfa_case(b, f, h, l, dh, idx, dtype, lq=None, lc=None, ctx_valid=None, reps
                              f"(max abs err {err})")
     planted = None
     if plant:
-        pad = -(-dh // 16) * 16  # the MMA depth the kernel pads dh to
+        pad = (dh // 16 + 1) * 16  # the next MMA depth above dh
         wrong = video_flash_attention(q, k, v, idx, sm_scale=pad**-0.5, **kw)
         planted = _err_over_tol(wrong, want)
         if not planted > 1.0:
@@ -455,6 +467,12 @@ def phase_kernels():
         _vfa_case(1, 16, 8, 4096, 40, (-1, 0, "first"), bf),   # 64x64 level, inversion
         _vfa_case(1, 16, 8, 1024, 80, (-1, 0, "first"), bf),   # 32x32 level, inversion
         _vfa_case(2, 16, 8, 1024, 80, (-1, "first"), bf),      # 32x32 level, PnP set, B=2
+        # SD-2.1: heads of 64 (one MMA atom, no pad), 5 at 64x64, 10 at 32x32
+        _vfa_case(2, 16, 5, 4096, 64, (-1, 0, "first"), bf, plant=True),
+        _vfa_case(2, 16, 5, 4096, 64, (-1, "first"), bf, plant=True),
+        _vfa_case(1, 16, 5, 4096, 64, (-1, 0, "first"), bf, plant=True),
+        _vfa_case(1, 16, 10, 1024, 64, (-1, 0, "first"), bf, plant=True),
+        _vfa_case(2, 16, 10, 1024, 64, (-1, "first"), bf, plant=True),
         _vfa_case(1, 4, 2, 256, 40, ("first", -1, 0), bf, lq=300, lc=200, ctx_valid=77),
         # ragged: Lq 129, L 200 (not whole 64-key tiles at dh=80), 5 valid ctx rows
         _vfa_case(1, 3, 2, 200, 80, ("first", -1, 0), bf, lq=129, lc=20, ctx_valid=5),
@@ -471,6 +489,9 @@ def phase_kernels():
         # SD3.5-large: 38 heads, the 2-branch and the B = 1 forwards
         _vfa_tokens_case(2, 16, 38, 4429, 4096, 64, idx, bf, lc=333, plant=True),
         _vfa_tokens_case(1, 16, 38, 4429, 4096, 64, idx, bf, lc=333, plant=True),
+        # SD3.5-large on tensor=4: a rank's 10 or 9 of the 38 heads
+        _vfa_tokens_case(1, 16, 10, 4429, 4096, 64, idx, bf, lc=333, plant=True),
+        _vfa_tokens_case(1, 16, 9, 4429, 4096, 64, idx, bf, lc=333, plant=True),
         _vfa_tokens_case(1, 3, 2, 333, 200, 64, idx, bf, lc=20),  # ragged Lq, L and ctx
         _vfa_tokens_case(1, 4, 3, 300, 256, 64, idx, torch.float32, lc=77),  # ragged Lq, fp32
     ]
@@ -683,21 +704,24 @@ def _decode_float(pipe, out, chunk: int = 8):
                       for s in range(0, out.shape[0], chunk)])
 
 
-def phase_main_path(steps: int):
-    """SD-1.5 at 512 px, 16 frames, bf16, on the card."""
+def phase_main_path(steps: int, variant: str = "sd15", tag: str = "main"):
+    """SD-1.5 (``variant='sd21'``: SD-2.1) at 512 px, 16 frames, bf16, on
+    the card; the peak memory is the path's own, from its build on."""
     import torch
 
     from univst_torch.pipelines.sd import SDVideoPipeline
 
     nf, px, device = 16, 512, "cuda"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    pipe = SDVideoPipeline.build(variant="sd15", num_frames=nf, dtype=torch.bfloat16,
+    pipe = SDVideoPipeline.build(variant=variant, num_frames=nf, dtype=torch.bfloat16,
                                  capture_up_block=2, seed=0, device=device)
     _sync()
-    print(f"[main] built sd15 (random weights, seed 0) in {time.time() - t0:.1f}s", flush=True)
+    print(f"[{tag}] built {variant} (random weights, seed 0) in {time.time() - t0:.1f}s",
+          flush=True)
 
     counters = _zero_counters()
-    w = _workflow(pipe, "sd", steps, nf, px, "main")
+    w = _workflow(pipe, "sd", steps, nf, px, tag)
     launches = {name: fn.launches for name, fn in counters.items()}
 
     traj, straj, masks, out, rec, stage = (w[k] for k in ("traj", "straj", "masks", "out", "rec",
@@ -710,13 +734,13 @@ def phase_main_path(steps: int):
     # each with the sparse-causal attentions at L >= 1024: 5 at 64x64, 5 at 32x32
     _check_launches(launches, {"video_flash_attention": 10 * 3 * steps,
                                "video_flash_attention_tokens": 0})
-    summary = dict(steps=steps, frames=nf, size=px, stage_s=stage, main_path_s=w["main_s"],
-                   workflow_frames_per_s=nf / w["main_s"],
+    summary = dict(variant=variant, steps=steps, frames=nf, size=px, stage_s=stage,
+                   main_path_s=w["main_s"], workflow_frames_per_s=nf / w["main_s"],
                    stylize_frames_per_s=nf / (stage["stylize"] + stage["decode"]),
                    recon_latent_psnr_db=psnr, launches=launches,
                    masks_foreground=float((masks > 0).float().mean().item()),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(f"[main] {json.dumps(summary)}", flush=True)
+    print(f"[{tag}] {json.dumps(summary)}", flush=True)
     return launches, (pipe, traj, straj, w["ctx"], masks, out), dict(stage=stage, psnr=psnr)
 
 
@@ -1073,8 +1097,14 @@ def phase_ad(steps: int):
                    masks_foreground=float((masks > 0).float().mean().item()),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"[ad] {json.dumps(summary)}", flush=True)
-    _ad_psnr_ladder(pipe, w["latents"], w["ctx"], steps)
+    _ad_psnr_ladder(pipe, w["latents"], w["ctx"], AD_PSNR_STEPS)
     return launches
+
+
+# [ad_psnr]'s round trips: cut from the AD path's 30 steps (six round trips,
+# ~57 s on the card) to keep the script within its time limit once [sd21]
+# and [mesh_sd3 tp] joined it; the ladder compares its rungs at equal steps
+AD_PSNR_STEPS = 10
 
 
 def _ad_psnr_ladder(pipe, z0, ctx, steps: int):
@@ -1311,6 +1341,11 @@ SD3_MESH_JOBS = {
     "sd3m_bf16_dp2": ("sd3", "bf16", 512, 16, 2, 1, 2),
     "sd35m_bf16_dp2tp2": ("sd35m", "bf16", 512, 8, 2, 2, 1),
 }
+# the SD3 forward pair on a tensor axis that does not divide the heads:
+# SD3.5-large's MMDiT alone (38 heads of 64, hidden 2432; depth cut from 38
+# blocks to ``layers``), 512 px, ``nf`` frames, on ``data x tensor`` gloo
+# ranks (10, 10, 9 and 9 heads a rank), the probe at step ``steps // 2``
+SD3_TP_FORWARD = dict(variant="sd35", layers=4, px=512, nf=4, data=1, tensor=4, steps=8)
 # [mesh] smooth: the job whose ranks and one-card runs also stylize with
 # the pixel smoother (LK, two smoothing steps inside phase 1, radius 2;
 # ``_mesh_smooth``), from the same trajectories, masks and context
@@ -1983,6 +2018,29 @@ def _stage_gates(got: dict, want: dict, fp32: bool, one=None) -> dict:
     return rows
 
 
+def _forward_readings(got: dict, want: dict, fp32: bool) -> dict:
+    """A sharded forward pair (``_forward_pair`` / ``_forward_pair_sd3``)
+    against one card's: fp32 within ``_err_over_tol32``; for a bf16 pair
+    (which also holds its fp32 forwards, ``*_fp32``) the bf16 forward's
+    relative RMS distance from the one-card fp32 forward over the one-card
+    bf16 forward's (``bf16_ratio``)."""
+    fwd = {}
+    for name in ("inversion", "injected"):
+        key = name if fp32 else name + "_fp32"
+        fwd[name] = dict(err_over_tol32=_err_over_tol32(got[key], want[key]))
+        if not fp32:
+            err, ref_err = _rel_rms(got[name], want[key]), _rel_rms(want[name], want[key])
+            fwd[name].update(bf16_rel_rms=_rel_rms(got[name], want[name]),
+                             bf16_vs_fp32_rel_rms=err, ref_bf16_vs_fp32_rel_rms=ref_err,
+                             bf16_ratio=err / ref_err)
+    return fwd
+
+
+def _forward_ok(fwd: dict) -> bool:
+    return all(v["err_over_tol32"] <= 1.0 and v.get("bf16_ratio", 0.0) <= MESH_BF16_RATIO
+               for v in fwd.values())
+
+
 def _check_mesh(job: str, result, ref, fed_ref, one_fed=None, floor=None) -> dict:
     """A sharded job against its one-process reference.
 
@@ -2002,16 +2060,7 @@ def _check_mesh(job: str, result, ref, fed_ref, one_fed=None, floor=None) -> dic
     import torch
 
     fp32 = (MESH_JOBS[job] if job in MESH_JOBS else SD3_MESH_JOBS[job])[1] == "fp32"
-    fwd = {}
-    got, want = result["forward"], ref["forward"]
-    for name in ("inversion", "injected"):
-        key = name if fp32 else name + "_fp32"
-        fwd[name] = dict(err_over_tol32=_err_over_tol32(got[key], want[key]))
-        if not fp32:
-            err, ref_err = _rel_rms(got[name], want[key]), _rel_rms(want[name], want[key])
-            fwd[name].update(bf16_rel_rms=_rel_rms(got[name], want[name]),
-                             bf16_vs_fp32_rel_rms=err, ref_bf16_vs_fp32_rel_rms=ref_err,
-                             bf16_ratio=err / ref_err)
+    fwd = _forward_readings(result["forward"], ref["forward"], fp32)
     wf = _compare(result, ref, fp32)
     stages = _stage_gates(result["fed"], fed_ref, fp32, one_fed)
     out = dict(job=job, forward=fwd, workflow=wf)
@@ -2026,9 +2075,7 @@ def _check_mesh(job: str, result, ref, fed_ref, one_fed=None, floor=None) -> dic
     for k in ("out", "traj", "rec"):
         if not torch.isfinite(result[k].float()).all():
             raise AssertionError(f"[mesh] {job}: {k} has non-finite values")
-    ok_fwd = all(v["err_over_tol32"] <= 1.0 and v.get("bf16_ratio", 0.0) <= MESH_BF16_RATIO
-                 for v in fwd.values())
-    if not (ok_fwd and wf["masks_equal"] >= 0.995):
+    if not (_forward_ok(fwd) and wf["masks_equal"] >= 0.995):
         raise AssertionError(f"[mesh] {job} misses its one-process reference: {out}")
     missed = [k for k, row in stages.items() if not row["ok"]]
     if missed:
@@ -2504,6 +2551,131 @@ def phase_mesh_sd3() -> dict:
     return launches
 
 
+def _mmdit_pipe(dtype, device="cuda"):
+    """``SD3_TP_FORWARD``'s pipeline: an ``SD3VideoPipeline`` that holds only
+    the MMDiT, its depth cut, with seed-0 weights (``random_init_``, as the
+    pipeline's build draws them); enough for ``_forward_pair_sd3``."""
+    import torch
+
+    from univst_torch.core.scheduler import FlowMatchConfig, FlowMatchSchedule
+    from univst_torch.models.mmdit import MMDiT
+    from univst_torch.pipelines.sd import random_init_
+    from univst_torch.pipelines.sd3 import SD3VideoPipeline, _configs
+
+    job = SD3_TP_FORWARD
+    cfg = dataclasses.replace(_configs(job["variant"], None)[0], num_layers=job["layers"])
+    with torch.device(device):
+        mmdit = MMDiT(cfg)
+    random_init_(mmdit, torch.Generator(device=device).manual_seed(0))
+    mmdit.to(dtype).eval().requires_grad_(False)
+    return SD3VideoPipeline(mmdit=mmdit, vae=None, clip_l=None, clip_g=None, t5=None,
+                            tokenizer=None, tokenizer_3=None,
+                            schedule=FlowMatchSchedule(FlowMatchConfig()), num_frames=job["nf"],
+                            device=torch.device(device), dtype=dtype)
+
+
+def _mmdit_probe(pipe) -> dict:
+    """Seeded inputs of ``_forward_pair_sd3`` at ``SD3_TP_FORWARD``'s size:
+    latents of ``nf`` frames, one style frame, a context of 333 rows (T5's
+    256 and CLIP's 77) and a pooled embedding, the probe step's flow time."""
+    import numpy as np
+    import torch
+
+    job, cfg = SD3_TP_FORWARD, pipe.mmdit.cfg
+    steps, i, h = job["steps"], job["steps"] // 2, job["px"] // 8
+    sigma = float(pipe.schedule.sigmas(steps, mu=pipe._mu(h, h))[i])
+    rng = np.random.default_rng(0)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    return dict(i=i, t=sigma * pipe.schedule.cfg.num_train_timesteps,
+                z=draw(job["nf"], h, h, cfg.in_channels), sty=draw(1, h, h, cfg.in_channels),
+                ctx=draw(1, 333, cfg.joint_attention_dim),
+                pooled=draw(1, cfg.pooled_projection_dim))
+
+
+def _sd3_tp_forward_rank(rank: int, n: int, out_dir: str, probe: dict):
+    """One rank of ``SD3_TP_FORWARD``: the MMDiT pipeline replicated from
+    rank 0 and split over the tensor axis, the forward pair on ``probe``;
+    each rank writes its heads, K2 launches and collectives, rank 0 also
+    the (gathered) velocities."""
+    import torch
+    import torch.distributed as dist
+
+    from univst_torch.distributed.census import collect_collectives, summarize
+    from univst_torch.models.mmdit import JointAttention
+
+    mesh = _rank_mesh(rank, n, out_dir, SD3_TP_FORWARD["tensor"])
+    pipe = _mmdit_pipe(torch.bfloat16).with_mesh(mesh)
+    counters = _zero_counters()
+    with collect_collectives() as recs:
+        forward = _forward_pair_sd3(pipe, probe)
+    stats = dict(rank=rank, tensor_rank=mesh.tensor_rank,
+                 heads=sorted({m.num_heads for m in pipe.mmdit.modules()
+                               if isinstance(m, JointAttention)}),
+                 launches={name: fn.launches for name, fn in counters.items()},
+                 census=summarize(recs, by_site=True))
+    print(f"[mesh_sd3 tp] {json.dumps(stats)}", flush=True)
+    torch.save(stats, os.path.join(out_dir, f"stats{rank}.pt"))
+    if rank == 0:
+        torch.save(forward, os.path.join(out_dir, "result.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_sd3_tp_forward() -> dict:
+    """``SD3_TP_FORWARD`` gated as the ``[mesh]`` forward pairs are
+    (``_check_mesh``): the sharded fp32 forwards within ``_err_over_tol32``
+    <= 1 of the one-card ones, the bf16 ones within ``MESH_BF16_RATIO`` of
+    the one-card bf16 distance from fp32; each rank's heads ``share``'s
+    (10, 10, 9, 9), its K2 launches 4 x layers (the inversion and injected
+    forwards in bf16 and in fp32), the same all-reduce bytes on every rank.
+    Returns the ranks' launches, summed."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from univst_torch.distributed.tp import share
+
+    job = SD3_TP_FORWARD
+    n = job["data"] * job["tensor"]
+    t0 = time.time()
+    pipe = _mmdit_pipe(torch.bfloat16)
+    probe, num_heads = _mmdit_probe(pipe), pipe.mmdit.cfg.num_heads
+    ref = _forward_pair_sd3(pipe, probe)
+    del pipe
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(REPO, "results"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "results")) as out_dir:
+        mp.spawn(_sd3_tp_forward_rank, args=(n, out_dir, probe), nprocs=n, join=True)
+        stats = [torch.load(os.path.join(out_dir, f"stats{r}.pt"), weights_only=False)
+                 for r in range(n)]
+        got = torch.load(os.path.join(out_dir, "result.pt"), weights_only=False)
+    fwd = _forward_readings(got, ref, fp32=False)
+    heads = [st["heads"] for st in stats]
+    want_heads = [[len(range(num_heads)[share(num_heads, job["tensor"], st["tensor_rank"])])]
+                  for st in stats]
+    reduces = [{k: v["mb"] for k, v in st["census"].items() if k.startswith("all_reduce")}
+               for st in stats]
+    out = dict(job=job, forward=fwd, heads=heads, all_reduce_mb=reduces[0],
+               seconds=time.time() - t0)
+    print(f"[mesh_sd3 tp] {json.dumps(out)}", flush=True)
+    if not _forward_ok(fwd):
+        raise AssertionError(f"[mesh_sd3 tp] misses the one-card forward: {out}")
+    if heads != want_heads or any(r != reduces[0] for r in reduces):
+        raise AssertionError(f"[mesh_sd3 tp] heads {heads} (want {want_heads}) or "
+                             f"all-reduce MB differ by rank: {reduces}")
+    launches = {"video_flash_attention": 0, "video_flash_attention_tokens": 0}
+    for st in stats:
+        _check_launches(st["launches"], {"video_flash_attention": 0,
+                                         "video_flash_attention_tokens": 4 * job["layers"]})
+        for name in launches:
+            launches[name] += st["launches"][name]
+    return launches
+
+
 def _entry(name, replaces, launches, cases, main_case):
     return dict(name=name, route="cuda", source=SOURCE, replaces=replaces, launches=launches,
                 max_abs_err=max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16"),
@@ -2564,6 +2736,8 @@ def main(argv=None) -> int:
     profile_launches = clock("profile_sd", phase_profile_sd, sd_state, args.steps)
     del sd_state
     torch.cuda.empty_cache()
+    sd21_launches = clock("sd21", phase_main_path, args.steps, "sd21", "sd21")[0]
+    torch.cuda.empty_cache()
     clock("raft", phase_raft, smooth_frames)
     del smooth_frames
     torch.cuda.empty_cache()
@@ -2581,12 +2755,14 @@ def main(argv=None) -> int:
     mesh_launches, shard_cases, shard_tokens = clock("mesh", phase_mesh)
     torch.cuda.empty_cache()
     mesh_sd3_launches = clock("mesh_sd3", phase_mesh_sd3)
+    mesh_sd3_tp_launches = clock("mesh_sd3_tp", phase_sd3_tp_forward)
 
-    k1_paths = {"sd": sd_launches, "bench": bench_launches, "sd_fallback": fallback_launches,
+    k1_paths = {"sd": sd_launches, "sd21": sd21_launches, "bench": bench_launches,
+                "sd_fallback": fallback_launches,
                 "smooth": smooth_launches, "profile": profile_launches, **mesh_launches}
     k1_paths = {k: v["video_flash_attention"] for k, v in k1_paths.items()}
     k2_paths = dict(sd3_launches, profile=profile_launches, **mesh_launches,
-                    mesh_sd3=mesh_sd3_launches)
+                    mesh_sd3=mesh_sd3_launches, mesh_sd3_tp=mesh_sd3_tp_launches)
     k2_paths = {k: v["video_flash_attention_tokens"] for k, v in k2_paths.items()}
     entries = [
         dict(_entry("video_flash_attention", TPU_KERNEL, sum(k1_paths.values()),

@@ -82,6 +82,21 @@ def seeded_init(seed: int = 0):
         nn.Module.init = real
 
 
+SD21_TINY_CTX = 48  # the tiny context width (SD-2.1: 1024, SD-1.5: 768; SD-1.5-tiny: 32)
+
+
+def sd21_tiny_configs(unet_mod, clip_mod):
+    """SD-2.1's topology at tiny widths in one package's config classes
+    (``unet_sd``, ``clip_text``): linear ``proj_in`` / ``proj_out``, heads
+    of 16 at every level, a GELU CLIP of width ``SD21_TINY_CTX``."""
+    unet = unet_mod.UNetSDConfig(block_out_channels=(32, 64, 64, 64), num_heads=(2, 4, 4, 4),
+                                 cross_attention_dim=SD21_TINY_CTX, norm_num_groups=8,
+                                 use_linear_projection=True, temporal_identity=True)
+    clip = clip_mod.CLIPTextConfig(hidden_size=SD21_TINY_CTX, num_layers=2, num_heads=3,
+                                   intermediate_size=2 * SD21_TINY_CTX, hidden_act="gelu")
+    return unet, clip
+
+
 def to_np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

@@ -3,7 +3,8 @@ runs it: ``torchrun --nproc_per_node 4 -m univst_torch.cli.run_workflow
 --mesh data=4`` against the same CLI on one card (512 px, 16 frames, 30
 steps, bf16, seeded random weights); and the SD3 workflow on a ``data x
 tensor`` mesh the same way: SD3.5-large (1024 px, 16 frames, 8 steps) on
-``--mesh data=2,tensor=2`` and SD3.5-medium (32 steps) on ``--mesh data=4``;
+``--mesh data=2,tensor=2`` and on ``--mesh data=1,tensor=4`` (its 38 heads
+split 10, 10, 9, 9) and SD3.5-medium (32 steps) on ``--mesh data=4``;
 and the SD workflow once more with the pixel smoother (``--smoother pixel``,
 LK, smoothing steps [20, 25)) on ``data=4``, with the collective census of
 one sharded smoothing step held against a ``torch.profiler`` trace of it.
@@ -278,6 +279,8 @@ def test_sd_workflow_over_nccl_matches_one_card(tmp_path):
 SD3_RUNS = {
     # SD3.5-large's 38 heads split 19 a tensor rank
     "sd35l_dp2tp2": ("sd35", "8", "data=2,tensor=2"),
+    # ... and 10, 10, 9, 9 over four tensor ranks, every rank on all 16 frames
+    "sd35l_tp4": ("sd35", "8", "data=1,tensor=4"),
     "sd35m_dp4": ("sd35m", "32", "data=4"),
 }
 

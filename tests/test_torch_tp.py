@@ -77,17 +77,16 @@ def test_role_table_follows_the_jax_rules():
     assert checked["replicated"] > 0
 
 
-@pytest.fixture(scope="module")
-def mmdit_case():
-    """The tiny MMDiT with 4 heads of 16 (tensor=2 and 4 divide them) and
-    q/k RMS norms, its JAX forward on 4 frames."""
+def _mmdit_case(num_heads: int):
+    """The tiny MMDiT with ``num_heads`` heads of 16 and q/k RMS norms, its
+    JAX forward on 4 frames."""
     from univst_tpu.core.config import SD3_FRAME_INDICES
     from univst_tpu.models.layers import VideoCtx
     from univst_tpu.models.mmdit import MMDiT as JMMDiT
     from univst_tpu.models.mmdit import MMDiTConfig as JCfg
     from univst_torch.models import convert as tcv
 
-    kw = dict(num_heads=4, head_dim=16, qk_norm="rms", dual_attention_layers=(0,))
+    kw = dict(num_heads=num_heads, head_dim=16, qk_norm="rms", dual_attention_layers=(0,))
     cfg = JCfg.tiny(**kw)
     model = JMMDiT(cfg)
     vctx = VideoCtx(num_frames=F, frame_indices=SD3_FRAME_INDICES)
@@ -101,6 +100,18 @@ def mmdit_case():
                                   jnp.asarray(ctx), jnp.asarray(pooled), vctx)[0])
     state = tcv.to_torch_state_dict(tcv.flax_mmdit_to_state_dict(params, cfg))
     return kw, state, x, ctx, pooled, want[None]
+
+
+@pytest.fixture(scope="module")
+def mmdit_case():
+    """4 heads of 16: tensor=2 and 4 divide them."""
+    return _mmdit_case(4)
+
+
+@pytest.fixture(scope="module")
+def mmdit6_case():
+    """6 heads of 16: tensor=4 divides the 96 q/k/v columns, not the heads."""
+    return _mmdit_case(6)
 
 
 @pytest.mark.parametrize("n_data, n_tensor", [(2, 2), (1, 2)])
@@ -168,16 +179,70 @@ def test_sd3_forward_moves_halo_all_to_alls_and_tensor_all_reduces(shift, mmdit_
                                    atol=3e-4)
 
 
-def test_tensor_axis_must_divide_the_heads(mmdit_case, tmp_path):
+@pytest.mark.parametrize("n_data", [1, 2])
+def test_mmdit_with_uneven_heads_on_tensor_4_matches_jax(n_data, mmdit6_case, tmp_path):
+    """6 heads over ``tensor=4`` (as SD3.5-large's 38: 10, 10, 9, 9): the
+    tensor ranks take 2, 2, 1 and 1 whole heads, the MLPs' 384 features 96
+    each; the forward matches JAX and is the same on every rank, bit for
+    bit (each all-reduce leaves the tensor ranks' activations equal)."""
+    kw, state, x, ctx, pooled, want = mmdit6_case
+    res = td.run_ranks(td.mmdit_forward, n_data * 4, tmp_path, state, kw, x, ctx, pooled, T,
+                       mesh_tensor=4)
+    assert [heads for _, _, _, heads, _ in res] == [[2], [2], [1], [1]] * n_data
+    for v, recs, _, _, _ in res:
+        assert v.shape == want.shape
+        np.testing.assert_allclose(v.numpy(), want, atol=3e-4)
+        assert torch.equal(v, res[0][0])
+        # the all-reduces carry whole activations: the same bytes on every rank
+        assert ([nb for op, nb, *_ in recs if op == "all_reduce"]
+                == [nb for op, nb, *_ in res[0][1] if op == "all_reduce"])
+
+
+@pytest.mark.parametrize("num_heads, head_dim, n_tensor, refusal", [
+    (38, 64, 4, None),  # SD3.5-large: 10, 10, 9, 9 heads a rank
+    (38, 64, 2, None),
+    (4, 16, 3, "64 q/k/v columns"),  # as the JAX rules: 3 does not divide 64 columns
+    (2, 16, 4, "no whole head"),  # more ranks than heads
+], ids=["sd35l_tensor4", "sd35l_tensor2", "tiny_tensor3", "tiny_more_ranks_than_heads"])
+def test_tensor_axis_must_divide_the_heads(num_heads, head_dim, n_tensor, refusal,
+                                           mmdit_case, tmp_path):
+    """``check_heads`` refuses what the JAX package cannot place (a tensor
+    axis that does not divide the q/k/v columns) and an axis with more
+    ranks than heads; the 4-head MMDiT on 3 tensor ranks is refused by the
+    ranks themselves."""
     from univst_torch.distributed.tp import check_heads
 
-    with pytest.raises(ValueError, match="does not divide the MMDiT's 38 heads"):
-        check_heads(38, 4)
-    check_heads(38, 2)
+    if refusal is None:
+        check_heads(num_heads, n_tensor, head_dim)
+        return
+    reason = f"does not divide the MMDiT's {num_heads} heads of {head_dim}: .*{refusal}"
+    with pytest.raises(ValueError, match=reason):
+        check_heads(num_heads, n_tensor, head_dim)
     kw, state, x, ctx, pooled, _ = mmdit_case
-    with pytest.raises(AssertionError, match="does not divide the MMDiT's 4 heads"):
-        td.run_ranks(td.mmdit_forward, 3, tmp_path, state, kw, x, ctx, pooled, T,
-                     mesh_tensor=3)
+    if (num_heads, head_dim) == (kw["num_heads"], kw["head_dim"]):
+        with pytest.raises(AssertionError, match=reason):
+            td.run_ranks(td.mmdit_forward, n_tensor, tmp_path, state, kw, x, ctx, pooled, T,
+                         mesh_tensor=n_tensor)
+
+
+def test_sd35_large_on_tensor_4_passes_the_cli_check(tmp_path):
+    """``run_workflow --backbone sd3 --variant sd35 --mesh data=1,tensor=4``
+    gets past the CLIs' head check (``cli/common.py``) and stops only where
+    one process is not the mesh's 4 ranks."""
+    import os
+
+    from univst_torch.cli import run_workflow
+
+    ex = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
+    argv = ["--backbone", "sd3", "--variant", "sd35", "--platform", "cpu", "--num_frames", "4",
+            "--height", "64", "--width", "64", "--time_steps", "2", "--ft_indices", "1",
+            "--ft_timesteps", "1", "--mesh", "data=1,tensor=4",
+            "--content_path", os.path.join(ex, "contents", "demo-fly-tiny"),
+            "--style_path", os.path.join(ex, "styles", "tiny-00033.png"),
+            "--mask_path", os.path.join(ex, "masks", "demo-fly-tiny.png"),
+            "--output_root", str(tmp_path)]
+    with pytest.raises(SystemExit, match="needs 4 ranks"):
+        run_workflow.main(run_workflow.build_parser().parse_args(argv))
 
 
 @pytest.fixture(scope="module")

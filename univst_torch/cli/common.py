@@ -98,7 +98,7 @@ def check_backbone(args) -> None:
                 from univst_torch.pipelines.sd3 import _configs
 
                 mcfg = _configs(getattr(args, "variant", None) or "sd3", None)[0]
-                check_heads(mcfg.num_heads, axes.n_tensor)
+                check_heads(mcfg.num_heads, axes.n_tensor, mcfg.head_dim)
         except ValueError as e:
             raise SystemExit(f"--mesh {spec}: {e}") from e
 

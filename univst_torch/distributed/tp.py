@@ -15,12 +15,19 @@ sum is one counted ``comm.all_reduce_`` over the mesh's tensor group:
   * replicated: everything else (norms, modulation linears, embedders, the
     output head).
 
-So a tensor rank computes its ``H / M`` heads' attention and its ``1 / M``
-of each MLP's hidden features; the activations between blocks are whole
-and equal on every tensor rank. The per-head q/k RMS norms and the SD3
-AdaIN shift reduce within a head and need no collective. A head count that
-``M`` does not divide is refused (XLA splits such heads at column
-boundaries; this port splits whole heads only).
+Every split is of whole units, near-even: tensor rank ``r`` of ``M`` takes
+``n // M + (r < n % M)`` of ``n`` units (:func:`share`), its units after
+those of the ranks before it. The attention linears' unit is a head
+(``head_dim`` rows or columns), the MLPs' one hidden feature. So a tensor
+rank computes its own heads' attention, ``H // M`` or one more (SD3.5-large's
+38 on ``tensor=4``: 10, 10, 9, 9), and its share of each MLP's hidden
+features (9728 / 4 exactly); the activations between blocks are whole and
+equal on every tensor rank, bit for bit, after each all-reduce. The per-head
+q/k RMS norms and the SD3 AdaIN shift reduce within a head and need no
+collective. :func:`check_heads` refuses what the JAX package cannot place
+(a tensor axis that does not divide the q/k/v columns) and an axis with
+more ranks than heads, where a rank would hold no whole head (XLA would
+split a head at a column boundary; K2 takes whole heads).
 """
 
 from __future__ import annotations
@@ -38,6 +45,11 @@ from univst_torch.models.mmdit import DualSelfAttention, JointAttention
 COLUMN = ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj", "add_v_proj",
           "ff.net.0.proj", "ff_context.net.0.proj")
 ROW = ("to_out.0", "to_add_out", "ff.net.2", "ff_context.net.2")
+MLP = ("ff.net.0.proj", "ff_context.net.0.proj", "ff.net.2", "ff_context.net.2")
+
+
+def _matches(name: str, suffixes) -> bool:
+    return any(name == s or name.endswith("." + s) for s in suffixes)
 
 
 def role(name: str) -> str:
@@ -45,23 +57,38 @@ def role(name: str) -> str:
     prefix): 'column', 'row' or 'replicated'
     (univst_tpu/distributed/tp.py:6-23)."""
     for kind, suffixes in (("column", COLUMN), ("row", ROW)):
-        if any(name == s or name.endswith("." + s) for s in suffixes):
+        if _matches(name, suffixes):
             return kind
     return "replicated"
 
 
-def _part(n: int, mesh: Mesh) -> slice:
-    k = n // mesh.n_tensor
-    return slice(mesh.tensor_rank * k, (mesh.tensor_rank + 1) * k)
+def share(n: int, parts: int, index: int) -> slice:
+    """Part ``index`` of ``n`` whole units split over ``parts`` as evenly as
+    they go: the first ``n % parts`` parts take one unit more."""
+    base, extra = divmod(n, parts)
+    start = index * base + min(index, extra)
+    return slice(start, start + base + (index < extra))
+
+
+def local_heads(num_heads: int, mesh: Mesh) -> int:
+    """The heads tensor rank ``mesh.tensor_rank`` computes."""
+    part = share(num_heads, mesh.n_tensor, mesh.tensor_rank)
+    return part.stop - part.start
+
+
+def _part(n: int, mesh: Mesh, unit: int) -> slice:
+    """This tensor rank's features of ``n``, split in whole ``unit``s."""
+    part = share(n // unit, mesh.n_tensor, mesh.tensor_rank)
+    return slice(part.start * unit, part.stop * unit)
 
 
 class ColumnParallelLinear(nn.Module):
     """This tensor rank's rows of a linear's weight and bias (its share of
-    the output features, in order): no collective."""
+    the output features, in order, in whole ``unit``s): no collective."""
 
-    def __init__(self, linear: nn.Linear, mesh: Mesh):
+    def __init__(self, linear: nn.Linear, mesh: Mesh, unit: int = 1):
         super().__init__()
-        part = _part(linear.out_features, mesh)
+        part = _part(linear.out_features, mesh, unit)
         self.weight = nn.Parameter(linear.weight.data[part].clone(), requires_grad=False)
         self.bias = (None if linear.bias is None
                      else nn.Parameter(linear.bias.data[part].clone(), requires_grad=False))
@@ -79,10 +106,10 @@ class RowParallelLinear(nn.Module):
     held whole, is added once to the sum, and the sum is rounded to the
     working type: M + 1 roundings where the one-card GEMM rounds once."""
 
-    def __init__(self, linear: nn.Linear, mesh: Mesh, site: str):
+    def __init__(self, linear: nn.Linear, mesh: Mesh, site: str, unit: int = 1):
         super().__init__()
         self.mesh, self.site = mesh, site
-        part = _part(linear.in_features, mesh)
+        part = _part(linear.in_features, mesh, unit)
         self.weight = nn.Parameter(linear.weight.data[:, part].clone(), requires_grad=False)
         self.bias = (None if linear.bias is None
                      else nn.Parameter(linear.bias.data.clone(), requires_grad=False))
@@ -94,37 +121,46 @@ class RowParallelLinear(nn.Module):
         return y.to(x.dtype)
 
 
-def check_heads(num_heads: int, n_tensor: int) -> None:
-    """Refuse a tensor axis that does not divide the heads."""
-    if num_heads % n_tensor:
-        raise ValueError(f"tensor={n_tensor} does not divide the MMDiT's {num_heads} heads: "
-                         "the port splits whole heads only (pick a tensor axis that divides "
-                         "them, e.g. tensor=2 for SD3.5-large's 38)")
+def check_heads(num_heads: int, n_tensor: int, head_dim: int = 64) -> None:
+    """Refuse a tensor axis the JAX package cannot place: one that does not
+    divide the q/k/v columns, ``num_heads * head_dim``, which its column
+    splits need (univst_tpu/distributed/tp.py:25-33; the MLPs' width, 4x
+    that, then divides too); and one with more ranks than heads, where a
+    rank would hold no whole head."""
+    cols = num_heads * head_dim
+    why = (f"{cols} q/k/v columns" if cols % n_tensor
+           else "a rank would hold no whole head" if n_tensor > num_heads else None)
+    if why:
+        raise ValueError(f"tensor={n_tensor} does not divide the MMDiT's {num_heads} heads of "
+                         f"{head_dim}: {why} (e.g. tensor=2 or 4 for SD3.5-large's 38)")
 
 
 @torch.no_grad()
 def shard_mmdit(mmdit: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
     """Split ``mmdit``'s linears by :func:`role` over ``mesh``'s tensor axis,
-    in place (weights as loaded; replicate them first), and give each
-    attention its local head count. A no-op without a tensor axis."""
+    in place (weights as loaded; replicate them first), the attention
+    linears in whole heads and the MLPs' in features, and give each
+    attention the rank's head count (:func:`local_heads`). A no-op without
+    a tensor axis."""
     if mesh is None or mesh.n_tensor == 1:
         return mmdit
     cfg = mmdit.cfg
-    check_heads(cfg.num_heads, mesh.n_tensor)
+    check_heads(cfg.num_heads, mesh.n_tensor, cfg.head_dim)
     for name, module in list(mmdit.named_modules()):
         if not isinstance(module, nn.Linear) or role(name) == "replicated":
             continue
         parent_name, _, leaf = name.rpartition(".")
         parent = mmdit.get_submodule(parent_name)
-        new = (ColumnParallelLinear(module, mesh) if role(name) == "column"
-               else RowParallelLinear(module, mesh, site=_site(name)))
+        unit = 1 if _matches(name, MLP) else cfg.head_dim
+        new = (ColumnParallelLinear(module, mesh, unit) if role(name) == "column"
+               else RowParallelLinear(module, mesh, _site(name), unit))
         if isinstance(parent, nn.ModuleList):
             parent[int(leaf)] = new
         else:
             setattr(parent, leaf, new)
     for module in mmdit.modules():
         if isinstance(module, (JointAttention, DualSelfAttention)):
-            module.num_heads = cfg.num_heads // mesh.n_tensor
+            module.num_heads = local_heads(cfg.num_heads, mesh)
     return mmdit
 
 

@@ -170,21 +170,30 @@ class SDVideoPipeline(FrameParallel):
         seed: int = 0,
         device=None,
         mesh: Optional[Mesh] = None,
+        unet_cfg: Optional[UNetSDConfig] = None,
+        clip_cfg: Optional[CLIPTextConfig] = None,
     ) -> "SDVideoPipeline":
         """Build the modules on ``device`` (CUDA unless the CPU is asked for)
         and load a checkpoint directory strictly when one is given; else
         random weights from a generator seeded with ``seed``. The UNet is
         paired with the SVD temporal-decoder VAE, as the reference does
         (run_content_inversion_sd.py:41-43). The modules take any size.
-        ``mesh``: frame-parallel over it (:meth:`with_mesh`)."""
+        ``mesh``: frame-parallel over it (:meth:`with_mesh`). ``unet_cfg``
+        and ``clip_cfg`` replace the variant's configs, as in
+        univst_tpu/pipelines/sd.py:117-134 (``capture_up_block`` still
+        applies to a given ``unet_cfg``)."""
         device = resolve_device(device)
         set_precision()
-        unet_cfg = {"sd15": UNetSDConfig.sd15, "sd21": UNetSDConfig.sd21,
-                    "tiny": UNetSDConfig.tiny}[variant](capture_up_block=capture_up_block)
+        if unet_cfg is None:
+            unet_cfg = {"sd15": UNetSDConfig.sd15, "sd21": UNetSDConfig.sd21,
+                        "tiny": UNetSDConfig.tiny}[variant](capture_up_block=capture_up_block)
+        elif capture_up_block is not None:
+            unet_cfg = dataclasses.replace(unet_cfg, capture_up_block=capture_up_block)
         vae_cfg = (VAEConfig.svd() if variant in ("sd15", "sd21")
                    else VAEConfig.tiny(temporal_decoder=True))
-        clip_cfg = {"sd15": CLIPTextConfig.sd15, "sd21": CLIPTextConfig.sd21,
-                    "tiny": CLIPTextConfig.tiny}[variant]()
+        if clip_cfg is None:
+            clip_cfg = {"sd15": CLIPTextConfig.sd15, "sd21": CLIPTextConfig.sd21,
+                        "tiny": CLIPTextConfig.tiny}[variant]()
 
         with torch.device(device):
             unet, vae, text = UNetPseudo3D(unet_cfg), AutoencoderKL(vae_cfg), CLIPTextModel(clip_cfg)
