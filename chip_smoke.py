@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SD-1.5 (with and without the pixel smoother),
 SD-2.1, AnimateDiff-v2, SD3-medium, SD3.5-medium and SD3.5-large workflows
-on one NVIDIA GPU, profile three of its forwards, and run the SD-1.5 and
-AnimateDiff workflows frame-parallel, and SD3 on a ``data x tensor`` mesh,
-as ranks that share the card.
+on one NVIDIA GPU, profile three of its forwards, run its tools
+(``univst_torch/tools``), and run the SD-1.5 and AnimateDiff workflows
+frame-parallel, and SD3 on a ``data x tensor`` mesh, as ranks that share
+the card.
 
     python3 chip_smoke.py [--steps N] [--ad_steps N] [--sd3_steps N] [--sd35l_steps N]
 
@@ -17,12 +18,12 @@ none catches its own failure:
 3. Kernels against their plain PyTorch versions, in bf16 at the shapes the
    main paths give them (and small ragged bf16 and fp32 cases each):
    the error against a tolerance that follows the output's scale
-   (``_err_over_tol``), a planted fault per kernel that the same check must
-   reject, kernel / plain / library times (CUDA events) and the card's
-   least time for the work (bound: the largest of tensor-core FLOPs, the
-   exponentials on the MUFU and the FMA pipe together, and bytes, from
-   ``univst_torch.attention.video_flash.work``; each term on a ``[bound]``
-   line). K1 is the head-major video flash attention of the SD UNet (SD-1.5:
+   (``univst_torch.tools.err_over_tol``), a planted fault per kernel that
+   the same check must reject, kernel / plain / library times (CUDA
+   events) and the card's least time for the work (bound: the largest of
+   tensor-core FLOPs, the exponentials on the MUFU and the FMA pipe
+   together, and bytes, from ``univst_torch.attention.video_flash.work``;
+   each term on a ``[bound]`` line). K1 is the head-major video flash attention of the SD UNet (SD-1.5:
    8 heads of 40 and 80; SD-2.1: 5 and 10 heads of 64, each row with its
    planted fault), K2 the token-major one of the SD3 MMDiT (24 heads; 38
    for SD3.5-large, and a ``tensor=4`` rank's 10 or 9 of them). Then
@@ -90,10 +91,11 @@ none catches its own failure:
    (inversion's two, the reconstruction, one stylization forward;
    single-frame forwards run none), each one K2 launch per attention: K2
    must launch 4 x (blocks + dual-attention blocks) x steps times, K1
-   never. ``[sd3]``: SD3-medium (24 blocks, 24 heads of 64; 96 a step).
-   ``[sd35m]``: SD3.5-medium (24 blocks, 24 heads of 64, q/k RMS norms,
-   dual attention, without context, in blocks 0-12; 148 a step) at
-   ``SD35M_STEPS``.
+   never. ``[sd3]``: SD3-medium (24 blocks, 24 heads of 64; 96 a step) at
+   ``--sd3_steps``, both stylization phases. ``[recipe]`` (10b.) runs
+   beside it. ``[sd35m]``: SD3.5-medium (24 blocks, 24 heads of 64, q/k RMS
+   norms, dual attention, without context, in blocks 0-12; 148 a step) at
+   ``SD35M_STEPS``, the 2-branch phase only.
    ``[sd35l]``: SD3.5-large (38 blocks, 38 heads of 64, q/k RMS norms; 152
    a step) at ``--sd35l_steps``.
 10. Profile (``[profile]``): one 16-frame SD-1.5 UNet forward at 512 px
@@ -106,6 +108,31 @@ none catches its own failure:
    launches in it checked, and its matmul / conv / attention FLOPs
    (``univst_torch.utils.flops``: effective TFLOP/s and MFU against 989
    TFLOP/s).
+10b. The tools (``univst_torch/tools``), after the SD-1.5 profile, on
+   ``[main]``'s pipeline: ``[stages]`` (``bench_stages.measure``: the
+   bench workload, 50 steps, cut into the style pre-pass, the phase-1 and
+   phase-2 segments and the decode, each warm; dispatch marks; each
+   stage's device split; gated: every row finite and positive, the
+   closure within 0.85-1.15 of the full run, K1 500 launches a run, device
+   time in every split), ``[anatomy]`` (``bench_anatomy.measure``: the
+   chunks, the one-call forwards, ``video_mha`` at the three levels, the
+   decode; gated: the 64x64 and 32x32 rows launched K1, the 16x16 ones did
+   not), ``[compare]`` (``compare_outputs`` on ``[main]``'s frames against
+   themselves, every gate passing, LPIPS on the card with seed-0 AlexNet
+   weights; with one frame inverted ``--psnr-min 40`` exits 1) and
+   ``[recipe]`` (``tools/start_sd.sh`` as a subprocess on the card, full
+   width, random weights, on ``demo-fly-tiny``'s 4 frames at 64 px and
+   the CLIs' 50 steps, beside ``[sd3]``; gated: both trajectories, {0,
+   255} masks, stylized frames). After ``[sd3]``, on its pipeline,
+   ``[sd3_anatomy]`` (``bench_sd3_anatomy``'s three probes: the segments
+   over ``SD3_SEGMENT_STEPS`` steps, one step of each traced, and the
+   MMDiT forwards at 2F, F and 1 frame; gated: each segment's output
+   finite and of the latents' shape, K2 24 launches a segment step and a
+   video forward, none for the single frame; K2 alone at
+   ``[B,16,24,4429,4096,64]``, ctx 333, B = 2 and 1, within
+   ``err_over_tol`` <= 1 of its plain version; the GEMMs). The tools' rows
+   are timed at ``TOOL_REPS`` = 1; ``[anatomy]`` takes its chunk rows from
+   ``[stages]`` (the same calls on the same inputs).
 11. Frame parallelism (``[mesh]``, ``univst_torch.distributed``): K1's
    shard form (q of a rank's frames, K/V of its frames and the halo frames
    its index set reads, explicit slot tables; rank 1 of 2 at
@@ -165,19 +192,23 @@ none catches its own failure:
 Each path's launch counters are zeroed just before it and read just after;
 a kernel's ``launches`` in the JSON line is the sum over its paths, each
 path's own count under ``launches_by_path`` (K1: the SD, SD-2.1, bench,
-SD-fallback, smoother, profile, mesh and mesh_smooth paths; K2: SD3-medium,
-SD3.5-medium, SD3.5-large, profile, mesh, mesh_sd3 and mesh_sd3_tp). The
+SD-fallback, smoother, profile, stages, anatomy, mesh and mesh_smooth
+paths; K2: SD3-medium, its anatomy's segments and forwards, SD3.5-medium,
+SD3.5-large, profile, mesh, mesh_sd3 and mesh_sd3_tp). The
 last line is ``{"ok": true, "device": {...}}``; the lines before it hold
 the per-kernel JSON and the card's name and power limit. Any failed check
 exits non-zero. ``--steps``
-(SD-1.5) and ``--ad_steps`` default to 30 and ``--sd3_steps`` (SD3-medium)
-to 32: the fewest that run both stylization phases (the shift windows of
-the 50-step constants close after step 25 (SD), 24 (AD) and 30 (SD3)); 50
-is the full workload. ``--sd35l_steps`` and ``SD35M_STEPS`` are 8, cut to
-keep the script within its time limit: SD3.5-large and SD3.5-medium run
-the 2-branch stylization phase only (the stylized-only forward has the
-reconstruction forward's shape; SD3-medium runs it at the same widths).
-Each phase's seconds and the script's so far print on a ``[clock]`` line.
+(SD-1.5) and ``--ad_steps`` default to 30: the fewest that run both
+stylization phases (the shift windows of the 50-step constants close after
+step 25 (SD) and 24 (AD)); 50 is the full workload. ``--sd3_steps``
+(SD3-medium) defaults to 32, the fewest that run both phases through the
+workflow (SD3's shift window closes after step 30). ``--sd35l_steps`` and
+``SD35M_STEPS`` are 4, cut to keep the script within its time limit on
+slower hosts: the SD3.5 models run the 2-branch stylization phase only, at
+the widths whose stylized-only phase SD3-medium runs. ``[recipe]`` runs
+beside ``[sd3]`` (started just before it, waited for just after it: the
+recipe's host-bound CLIs overlap a device-bound path). Each phase's
+seconds and the script's so far print on a ``[clock]`` line.
 """
 
 from __future__ import annotations
@@ -274,29 +305,6 @@ def phase_build():
         print(f"[build] {os.path.relpath(path, REPO)} in {time.time() - t0:.2f}s", flush=True)
 
 
-def _err_over_tol(got, want) -> float:
-    """``max |got - want| / (atol + rtol * |want|)``: the check passes at <= 1.
-
-    bf16: rtol 2**-6 is two bf16 ulps (both sides round an fp32 result to
-    bf16, and the kernel packs P to bf16 for the PV product); atol is 0.02 x
-    the plain output's rms, for elements near zero. With N(0, 1) inputs that
-    rms is about sqrt(e / keys) (0.015 at the 64x64 level), so the bar follows
-    the shape. fp32: 1e-5 absolute and relative (the same arithmetic up to
-    summation order).
-    """
-    import torch
-
-    if want.dtype == torch.bfloat16:
-        want = want.float()
-        atol, rtol = 0.02 * want.pow(2).mean().sqrt().item(), 2.0**-6
-    else:
-        atol, rtol = 1e-5, 1e-5
-    diff = (got.float() - want).abs()
-    if not torch.isfinite(diff).all():
-        return float("inf")
-    return (diff / (atol + rtol * want.abs())).max().item()
-
-
 def _vfa_case(b, f, h, l, dh, idx, dtype, lq=None, lc=None, ctx_valid=None, reps=5,
               plant=False):
     """Kernel vs plain (and SDPA on the expanded K/V) on one shape. With
@@ -310,6 +318,7 @@ def _vfa_case(b, f, h, l, dh, idx, dtype, lq=None, lc=None, ctx_valid=None, reps
     from univst_torch.attention.video_flash import (
         video_flash_attention, video_flash_attention_plain,
     )
+    from univst_torch.tools import err_over_tol
 
     lq = l if lq is None else lq
     gen = torch.Generator(device="cuda").manual_seed(l * dh + len(idx))
@@ -326,7 +335,7 @@ def _vfa_case(b, f, h, l, dh, idx, dtype, lq=None, lc=None, ctx_valid=None, reps
     want = video_flash_attention_plain(q, k, v, idx, **kw)
     _sync()
     err = (got.float() - want.float()).abs().max().item()
-    ratio = _err_over_tol(got, want)
+    ratio = err_over_tol(got, want)
     if not ratio <= 1.0:
         raise AssertionError(f"video_flash_attention {tuple(q.shape)} {idx} {dtype}: "
                              f"kernel vs plain at {ratio:.3g}x the tolerance "
@@ -335,7 +344,7 @@ def _vfa_case(b, f, h, l, dh, idx, dtype, lq=None, lc=None, ctx_valid=None, reps
     if plant:
         pad = (dh // 16 + 1) * 16  # the next MMA depth above dh
         wrong = video_flash_attention(q, k, v, idx, sm_scale=pad**-0.5, **kw)
-        planted = _err_over_tol(wrong, want)
+        planted = err_over_tol(wrong, want)
         if not planted > 1.0:
             raise AssertionError(f"the check passed a kernel scaled by 1/sqrt({pad}) "
                                  f"instead of 1/sqrt({dh}) ({planted:.3g}x the tolerance)")
@@ -406,6 +415,7 @@ def _vfa_tokens_case(b, f, h, lq, l, dh, idx, dtype, lc=None, reps=3, plant=Fals
     from univst_torch.attention.video_flash import (
         video_flash_attention_tokens, video_flash_attention_tokens_plain,
     )
+    from univst_torch.tools import err_over_tol
 
     gen = torch.Generator(device="cuda").manual_seed(lq * dh + len(idx))
 
@@ -419,7 +429,7 @@ def _vfa_tokens_case(b, f, h, lq, l, dh, idx, dtype, lc=None, reps=3, plant=Fals
     want = video_flash_attention_tokens_plain(q, k, v, idx, **kw)
     _sync()
     err = (got.float() - want.float()).abs().max().item()
-    ratio = _err_over_tol(got, want)
+    ratio = err_over_tol(got, want)
     if not ratio <= 1.0:
         raise AssertionError(f"video_flash_attention_tokens {tuple(q.shape)} {idx} {dtype}: "
                              f"kernel vs plain at {ratio:.3g}x the tolerance (max abs err {err})")
@@ -427,7 +437,7 @@ def _vfa_tokens_case(b, f, h, lq, l, dh, idx, dtype, lc=None, reps=3, plant=Fals
     if plant:
         wrong = video_flash_attention_tokens(q, torch.roll(k, 1, dims=3),
                                              torch.roll(v, 1, dims=3), idx, **kw)
-        planted = _err_over_tol(wrong, want)
+        planted = err_over_tol(wrong, want)
         if not planted > 1.0:
             raise AssertionError(f"the check passed a kernel fed k/v rolled by one head "
                                  f"({planted:.3g}x the tolerance)")
@@ -741,7 +751,8 @@ def phase_main_path(steps: int, variant: str = "sd15", tag: str = "main"):
                    masks_foreground=float((masks > 0).float().mean().item()),
                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     print(f"[{tag}] {json.dumps(summary)}", flush=True)
-    return launches, (pipe, traj, straj, w["ctx"], masks, out), dict(stage=stage, psnr=psnr)
+    return (launches, (pipe, traj, straj, w["ctx"], masks, out),
+            dict(stage=stage, psnr=psnr, video=w["video"]))
 
 
 def _finite_numbers(tree, path="") -> list:
@@ -1176,7 +1187,7 @@ SD3_VARIANTS = {  # tag: (pipeline variant, what is built)
 # SD3.5-medium's steps: the 2-branch stylization phase only (32 run both
 # phases, +118 s on the card, which the script's time limit does not hold;
 # SD3-medium runs the stylized-only phase at the same widths)
-SD35M_STEPS = 8
+SD35M_STEPS = 4
 
 
 def phase_sd3(tag: str, steps: int, nf: int = 16, px: int = 1024):
@@ -1307,11 +1318,263 @@ def phase_profile_sd35m(state) -> dict:
     (37 K2 launches: 24 joint attentions with context, 13 dual without)."""
     pipe, z, ctx, pooled = state
     cfg = pipe.mmdit.cfg
-    t = float(pipe.schedule.timesteps(8, mu=pipe._mu(*z.shape[1:3]))[4])
+    ts = pipe.schedule.timesteps(SD35M_STEPS, mu=pipe._mu(*z.shape[1:3]))
+    t = float(ts[SD35M_STEPS // 2])  # the step of z = traj[SD35M_STEPS // 2]
     one = pipe._denoise_fn(ctx, pooled, None)
     return _profile_forward("sd35m_b1", pipe.mmdit, lambda: one(z, t, 0), {
         "video_flash_attention": 0,
         "video_flash_attention_tokens": cfg.num_layers + len(cfg.dual_attention_layers)})
+
+
+# ---------------------------------------------------------------------------
+# [stages], [anatomy], [sd3_anatomy], [compare], [recipe]: the tools
+# ---------------------------------------------------------------------------
+
+# --reps of the tools' rows in this script (the tools default to 2 and 3) and
+# the SD3 segments' steps (default 2): cut to keep the script within its limit
+TOOL_REPS = 1
+SD3_SEGMENT_STEPS = 1
+
+
+def _bad_rows(rows: dict) -> list:
+    """The rows that are not finite and positive."""
+    import math
+
+    return [k for k, v in rows.items() if not (isinstance(v, float) and math.isfinite(v)
+                                               and v > 0)]
+
+
+def phase_stages(sd_state) -> dict:
+    """``univst_torch.tools.bench_stages`` on ``[main]``'s pipeline: the bench
+    workload (50 steps, 512 px, 16 frames, synthetic trajectories from seed
+    0) cut into its stages, each warm; dispatch marks; each stage's device
+    split. Gated: every row finite and positive, the closure within 0.85 -
+    1.15 of the full run, K1 500 launches a run (10 a forward, 50 steps) and
+    K2 none, device time in every split."""
+    from univst_torch.tools import bench_stages
+
+    counters = _zero_counters()
+    m = bench_stages.measure(sd_state[0], steps=50, size=512, seed=0, reps=TOOL_REPS,
+                             trace_dir=os.path.join(REPO, "results", "stages"))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print("[stages] " + json.dumps(m), flush=True)
+    unseen = [k for k, v in m["device_split"].items() if not v["device_time_seen"]]
+    if unseen:
+        raise AssertionError(f"stages: no device time in the trace of {unseen}")
+    for name, split in m["device_split"].items():
+        print(f"[stages] split {name}: busy {split['busy_ms']:.2f} of {split['wall_ms']:.2f} "
+              f"ms traced, idle {split['idle_share']:.4f} (untraced "
+              f"{split['idle_share_untraced']:.4f}), " + json.dumps(split["device_ms"]),
+              flush=True)
+    bad = _bad_rows(m["rows"]) + _bad_rows(m["marks"])
+    if bad:
+        raise AssertionError(f"stages: rows not finite and positive: {bad}")
+    if not 0.85 <= m["closure_ratio"] <= 1.15:
+        raise AssertionError(f"stages: closure {m['closure_ratio']:.3f} of the full run")
+    if m["launches"] != {"k1": 500, "k2": 0}:
+        raise AssertionError(f"stages: launches a run {m['launches']}, want K1 500, K2 0")
+    return launches, m
+
+
+def phase_anatomy(sd_state, stages: dict) -> dict:
+    """``univst_torch.tools.bench_anatomy`` on ``[main]``'s pipeline, its
+    chunk rows taken from ``[stages]``' result ``stages`` (the same calls on
+    the same inputs). Gated: every row finite and positive; the 64x64 and
+    32x32 attention rows launched K1 (one launch a call), the 16x16 rows
+    did not."""
+    from univst_torch.tools import bench_anatomy
+
+    counters = _zero_counters()
+    m = bench_anatomy.measure(sd_state[0], steps=50, size=512, seed=0, reps=TOOL_REPS,
+                              stages=stages)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print("[anatomy] " + json.dumps(m), flush=True)
+    bad = _bad_rows(m["rows"])
+    if bad:
+        raise AssertionError(f"anatomy: rows not finite and positive: {bad}")
+    wrong = {row: p for row, p in m["attn_paths"].items()
+             if p["k1_launches"] != (0 if p["level"] == "16x16" else 1)}
+    if len(m["attn_paths"]) != 12 or wrong:
+        raise AssertionError(f"anatomy: attention rows off their path: {wrong}")
+    return launches
+
+
+def phase_sd3_anatomy(state) -> dict:
+    """``univst_torch.tools.bench_sd3_anatomy``'s three probes on
+    ``[sd3]``'s pipeline (SD3-medium, 1024 px, 16 frames): the segments
+    (``SD3_SEGMENT_STEPS`` a segment, one step of each traced) and the
+    MMDiT forwards, K2 alone at the real shape against its plain version,
+    the GEMMs. Gated: every row finite and positive, device time in each
+    segment's trace; each segment's output finite and of the latents'
+    shape; K2 24 launches a segment step and a 2F- and an F-frame forward,
+    none for the single frame; K2 launched at ``[B,16,24,4429,4096,64]``
+    (B = 2, 1) within ``err_over_tol`` <= 1. Returns the segments probe's
+    launches (the attn probe's compare the kernel with its plain version)."""
+    import torch
+
+    from univst_torch.tools import bench_sd3_anatomy as sa
+
+    pipe, _, ctx, pooled = state
+    counters = _zero_counters()
+    seg = sa.probe_segments(pipe, ctx, pooled, 1024, TOOL_REPS, SD3_SEGMENT_STEPS,
+                            trace_dir=os.path.join(REPO, "results", "sd3_anatomy"))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    attn = sa.probe_attn(pipe.device, pipe.num_frames, 1024, TOOL_REPS)
+    mm = sa.probe_matmul(pipe.device, pipe.num_frames, 1024, TOOL_REPS)
+    for m in (seg, attn, mm):
+        print(f"[sd3_anatomy] {m['probe']} " + json.dumps(m), flush=True)
+        bad = _bad_rows(m["rows"])
+        if bad:
+            raise AssertionError(f"sd3_anatomy {m['probe']}: rows not finite and positive: {bad}")
+    for name, split in seg["device_split"].items():
+        if not split["device_time_seen"]:
+            raise AssertionError(f"sd3_anatomy: no device time in the trace of {name}")
+        print(f"[sd3_anatomy] split {name}: busy {split['busy_ms']:.2f} ms, idle untraced "
+              f"{split['idle_share_untraced']:.4f}, " + json.dumps(split["device_ms"]),
+              flush=True)
+    per_forward = pipe.mmdit.cfg.num_layers + len(pipe.mmdit.cfg.dual_attention_layers)
+    got = [v.get("k2 a step", v.get("k2")) for v in seg["launches"].values()]
+    want = [per_forward] * 4 + [0]
+    if got != want:
+        raise AssertionError(f"sd3_anatomy: K2 launches a segment step and a forward {got}, "
+                             f"want {want}")
+    shape = [pipe.num_frames, 1024 // 8, 1024 // 8, pipe.vae.cfg.latent_channels]
+    bad = {k: v for k, v in seg["outputs"].items() if not v["finite"] or v["shape"] != shape}
+    if len(seg["outputs"]) != 2 or bad:
+        raise AssertionError(f"sd3_anatomy: segment outputs {seg['outputs']}, want finite "
+                             f"{shape}")
+    for name, case in attn["cases"].items():
+        if case["shape"][1:] != [16, 24, 4429, 4096, 64] or case["k2_launches"] != 1:
+            raise AssertionError(f"sd3_anatomy attn {name}: {case}")
+        if not case["err_over_tol"] <= 1.0:
+            raise AssertionError(f"sd3_anatomy attn {name}: K2 vs plain at "
+                                 f"{case['err_over_tol']:.3g}x the tolerance")
+    del pipe, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _run_compare_outputs(argv) -> tuple:
+    """``compare_outputs.main(argv)``: its exit code and its stdout."""
+    import contextlib
+    import io
+
+    from univst_torch.tools import compare_outputs
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = compare_outputs.main(argv)
+    return code, buf.getvalue().strip()
+
+
+def phase_compare(main_run) -> dict:
+    """``univst_torch.tools.compare_outputs`` on ``[main]``'s stylized
+    frames written as PNGs: against themselves every gate passes (PSNR,
+    SSIM and LPIPS, AlexNet trunk with random weights from seed 0, on the
+    card); against a copy with one frame inverted ``--psnr-min 40`` exits 1."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from univst_torch.utils.lpips import random_lpips_params
+
+    root = os.path.join(REPO, "results", "compare")
+    video = main_run["video"].cpu().numpy()
+    for name, frames in (("a", video), ("b", video.copy())):
+        if name == "b":
+            frames[3] = 255 - frames[3]
+        os.makedirs(os.path.join(root, name), exist_ok=True)
+        for i, frame in enumerate(frames):
+            Image.fromarray(frame).save(os.path.join(root, name, f"{i:05d}.png"))
+    sd = random_lpips_params(0).state_dict()
+    alex, lin = os.path.join(root, "alex.pth"), os.path.join(root, "lin.pth")
+    torch.save({k: v for k, v in sd.items() if k.startswith("features.")}, alex)
+    torch.save({k: v for k, v in sd.items() if k.startswith("lin")}, lin)
+    a, b = os.path.join(root, "a"), os.path.join(root, "b")
+    same, same_out = _run_compare_outputs(
+        [a, a, "--json", "--psnr-min", "40", "--ssim-min", "0.99", "--lpips-alexnet", alex,
+         "--lpips-lin", lin, "--lpips-max", "0.01"])
+    print(f"[compare] itself: exit {same} " + same_out, flush=True)
+    changed, changed_out = _run_compare_outputs([a, b, "--json", "--psnr-min", "40"])
+    print(f"[compare] one frame inverted: exit {changed} " + changed_out, flush=True)
+    res = json.loads(changed_out)
+    if same != 0 or json.loads(same_out)["lpips_mean"] != 0.0:
+        raise AssertionError(f"compare: the frames against themselves exit {same}")
+    if changed != 1 or not np.isfinite(res["psnr_min"]) or res["psnr_min"] >= 40:
+        raise AssertionError(f"compare: one frame inverted exit {changed}, psnr_min "
+                             f"{res['psnr_min']}")
+    return dict(same=same, changed=changed, psnr_min=res["psnr_min"])
+
+
+RECIPE_DIR = os.path.join(REPO, "results", "recipe")
+RECIPE_MASK = os.path.join(REPO, "examples", "masks", "demo-fly-tiny.png")
+
+
+def start_recipe():
+    """Start ``univst_torch/tools/start_sd.sh`` as a subprocess on the card,
+    in ``RECIPE_DIR``: the four CLIs of the SD workflow at full width with
+    random weights, on the committed ``demo-fly-tiny`` clip (4 frames, 64
+    px), its mask and the ``00033`` style, at the CLIs' 50 steps. It runs
+    beside ``[sd3]``, a path whose time is the card's (its stage seconds
+    then hold the recipe's share of the card); its output goes to
+    ``RECIPE_DIR/log.txt``. Returns ``(process, start time)``."""
+    import shutil
+
+    ex = os.path.join(REPO, "examples")
+    shutil.rmtree(RECIPE_DIR, ignore_errors=True)
+    os.makedirs(RECIPE_DIR)
+    env = dict(os.environ, PYTHON=sys.executable,
+               CONTENT=os.path.join(ex, "contents", "demo-fly-tiny"), MASK=RECIPE_MASK,
+               STYLE=os.path.join(ex, "styles", "00033.png"),
+               ARGS="--num_frames 4 --height 64 --width 64")
+    script = os.path.join(REPO, "univst_torch", "tools", "start_sd.sh")
+    with open(os.path.join(RECIPE_DIR, "log.txt"), "w") as log:
+        proc = subprocess.Popen(
+            ["bash", "-c", 'SECONDS=0; bash "$0"; rc=$?; echo "recipe seconds $SECONDS"; exit $rc',
+             script], cwd=RECIPE_DIR, env=env, stdout=log, stderr=subprocess.STDOUT)
+    print(f"[recipe] start_sd.sh started (pid {proc.pid})", flush=True)
+    return proc, time.time()
+
+
+def phase_recipe(started) -> dict:
+    """Wait for :func:`start_recipe`'s run and check its tree. Gated: the
+    recipe exits 0; the tree holds both trajectories (51 files each), the
+    input mask as frame 0 and {0, 255} masks for the propagated frames,
+    and 4 stylized non-constant 64 px frames."""
+    import numpy as np
+    from PIL import Image
+
+    proc, t0 = started
+    code = proc.wait(timeout=900)
+    took = time.time() - t0
+    with open(os.path.join(RECIPE_DIR, "log.txt")) as log:
+        text = log.read()
+    if code != 0:
+        raise AssertionError(f"recipe: start_sd.sh exited {code}:\n" + text[-6000:])
+    own = [int(ln.split()[-1]) for ln in text.splitlines() if ln.startswith("recipe seconds ")]
+    out = os.path.join(RECIPE_DIR, "results")
+    trajs = {k: len([f for f in os.listdir(os.path.join(out, d)) if f.endswith(".pt")])
+             for k, d in (("content", "contents-inv/sd/demo-fly-tiny/inversion"),
+                          ("style", "styles-inv/sd/00033/inversion"))}
+    mask_dir = os.path.join(out, "masks", "sd", "demo-fly-tiny")
+    masks = [np.asarray(Image.open(os.path.join(mask_dir, f"{i:05d}.png"))) for i in range(4)]
+    first = np.asarray(Image.open(RECIPE_MASK))
+    frame_dir = os.path.join(out, "stylizations", "sd", "demo-fly-tiny_00033")
+    frames = [np.asarray(Image.open(os.path.join(frame_dir, f"{i:05d}.png"))) for i in range(4)]
+    summary = dict(seconds=own[-1] if own else None, seconds_since_start=took,
+                   trajectory_files=trajs,
+                   first_mask_is_the_input=bool(np.array_equal(masks[0], first)),
+                   mask_values=sorted({int(v) for m in masks[1:] for v in np.unique(m)}),
+                   frames=[list(f.shape) for f in frames],
+                   frame_std=[float(f.std()) for f in frames])
+    print("[recipe] " + json.dumps(summary), flush=True)
+    if trajs != {"content": 51, "style": 51}:
+        raise AssertionError(f"recipe: trajectory files {trajs}")
+    if not summary["first_mask_is_the_input"] or not set(summary["mask_values"]) <= {0, 255}:
+        raise AssertionError(f"recipe: masks {summary}")
+    if any(s != [64, 64, 3] for s in summary["frames"]) or not min(summary["frame_std"]) > 0:
+        raise AssertionError(f"recipe: stylized frames {summary}")
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -1328,7 +1591,9 @@ MESH_JOBS = {
     # 10 (AD) to keep the script within its time limit: with its fp32 floor
     # and stage-fed rerun, the AD job takes 175 s at 10 steps on the card;
     # the SD job's 10 then to 6, which still hold [mesh] smooth's smoothing
-    # steps [4, 6), when the script with [bench] took 1218 s)
+    # steps [4, 6), when the script with [bench] took 1218 s; at 3 steps the
+    # fp32 4-rank job's stage-fed reconstruction read err / tol 1.12, 0.93
+    # at 6)
     "sd_bf16_2": ("sd", "bf16", 512, 16, 2, 6),
     "sd_fp32_2": ("sd", "fp32", 256, 8, 2, 6),
     "sd_fp32_4": ("sd", "fp32", 256, 8, 4, 6),
@@ -1365,7 +1630,7 @@ def _vfa_shard_case(b, nf, n, rank, h, l, dh, idx, dtype, reps=5, plant=False):
     """K1's shard form on rank ``rank`` of ``n`` (global ``nf`` frames): q of
     the rank's F = nf / n frames, k/v of its Fk = F + halo frames (its own,
     then the halo frames its index set reads), the slot tables explicit.
-    Against its plain version (``_err_over_tol``), against the unsharded
+    Against its plain version (``err_over_tol``), against the unsharded
     ``nf``-frame call's rows of the same frames (bitwise equal or not), and,
     with ``plant``, a slot table shifted by one frame, which the check must
     reject. Times and the bound count the shard form's own work."""
@@ -1376,6 +1641,7 @@ def _vfa_shard_case(b, nf, n, rank, h, l, dh, idx, dtype, reps=5, plant=False):
     from univst_torch.attention.video_flash import (
         video_flash_attention, video_flash_attention_plain,
     )
+    from univst_torch.tools import err_over_tol
 
     f = nf // n
     off = rank * f
@@ -1397,14 +1663,14 @@ def _vfa_shard_case(b, nf, n, rank, h, l, dh, idx, dtype, reps=5, plant=False):
     want = video_flash_attention_plain(q, k, v, idx, tables=tables)
     _sync()
     err = (got.float() - want.float()).abs().max().item()
-    ratio = _err_over_tol(got, want)
+    ratio = err_over_tol(got, want)
     if not ratio <= 1.0:
         raise AssertionError(f"video_flash_attention shard form {tuple(q.shape)} Fk={fk} {idx}: "
                              f"kernel vs plain at {ratio:.3g}x the tolerance (max abs err {err})")
     planted = None
     if plant:
         wrong = video_flash_attention(q, k, v, idx, tables=((srcs + 1) % fk, mult))
-        planted = _err_over_tol(wrong, want)
+        planted = err_over_tol(wrong, want)
         if not planted > 1.0:
             raise AssertionError(f"the check passed a slot table shifted by one frame "
                                  f"({planted:.3g}x the tolerance)")
@@ -1444,6 +1710,7 @@ def _vfa_tokens_shard_case(b, nf, n, rank, h, lq, l, dh, idx, dtype, lc, reps=3,
     from univst_torch.attention.video_flash import (
         video_flash_attention_tokens, video_flash_attention_tokens_plain,
     )
+    from univst_torch.tools import err_over_tol
 
     f = nf // n
     halo, srcs, mult = shard_kv_tables(tuple(idx), nf, rank * f, f)
@@ -1461,7 +1728,7 @@ def _vfa_tokens_shard_case(b, nf, n, rank, h, lq, l, dh, idx, dtype, lc, reps=3,
     want = video_flash_attention_tokens_plain(q, k, v, idx, **kw)
     _sync()
     err = (got.float() - want.float()).abs().max().item()
-    ratio = _err_over_tol(got, want)
+    ratio = err_over_tol(got, want)
     if not ratio <= 1.0:
         raise AssertionError(f"video_flash_attention_tokens shard form {tuple(q.shape)} "
                              f"Fk={fk}: kernel vs plain at {ratio:.3g}x the tolerance")
@@ -1469,7 +1736,7 @@ def _vfa_tokens_shard_case(b, nf, n, rank, h, lq, l, dh, idx, dtype, lc, reps=3,
     if plant:
         wrong = video_flash_attention_tokens(q, k, v, idx, **dict(kw, tables=((srcs + 1) % fk,
                                                                              mult)))
-        planted = _err_over_tol(wrong, want)
+        planted = err_over_tol(wrong, want)
         if not planted > 1.0:
             raise AssertionError(f"the check passed a slot table shifted by one frame "
                                  f"({planted:.3g}x the tolerance)")
@@ -2187,14 +2454,15 @@ def _check_mesh_smooth(job: str, result, stats, ref, floor) -> dict:
 
 
 def phase_mesh():
-    """Frame parallelism on the one card: K1's shard form (three shapes, a
-    planted slot-table fault) and K2's (also at a tensor rank's share of
-    the heads, with a planted slot-table fault), then the ``MESH_JOBS``:
-    the SD-1.5 workflow in bf16 at full width over 2 ranks, in fp32 at 256
-    px over 2 and 4 ranks, and AnimateDiff-v2 in bf16 at full width over 2
-    ranks, each against a one-card run at the same steps (``_mesh_jobs``).
-    The ranks time-slice the card over gloo (which stages every collective
-    through host memory): the times are not a speed measurement."""
+    """Frame parallelism on the one card, its kernels: K1's shard form (three
+    shapes, a planted slot-table fault) and K2's (also at a tensor rank's
+    share of the heads, with a planted slot-table fault). ``main`` then
+    runs the ``MESH_JOBS`` (``_mesh_jobs``): the SD-1.5 workflow in bf16 at
+    full width over 2 ranks, in fp32 at 256 px over 2 and 4 ranks, and
+    AnimateDiff-v2 in bf16 at full width over 2 ranks, each against a
+    one-card run at the same steps. The ranks time-slice the card over gloo
+    (which stages every collective through host memory): the times are not
+    a speed measurement."""
     import torch
 
     bf = torch.bfloat16
@@ -2211,7 +2479,7 @@ def phase_mesh():
           _vfa_tokens_shard_case(1, 16, 2, 1, 12, 4429, 4096, 64, sd3, bf, 333, plant=True),
           _vfa_tokens_shard_case(1, 16, 2, 1, 19, 4429, 4096, 64, sd3, bf, 333)]
     torch.cuda.empty_cache()
-    return _mesh_jobs(), k1, k2
+    return k1, k2
 
 
 def _mesh_jobs() -> dict:
@@ -2694,8 +2962,8 @@ def main(argv=None) -> int:
                    help="AnimateDiff steps (>= 26: both phases)")
     p.add_argument("--sd3_steps", type=int, default=32,
                    help="SD3-medium steps (>= 32: both phases)")
-    p.add_argument("--sd35l_steps", type=int, default=8,
-                   help="SD3.5-large steps (>= 32: both phases; 8 runs the 2-branch phase)")
+    p.add_argument("--sd35l_steps", type=int, default=4,
+                   help="SD3.5-large steps (>= 32: both phases; 4 runs the 2-branch phase)")
     args = p.parse_args(argv)
     try:
         import torch
@@ -2734,7 +3002,10 @@ def main(argv=None) -> int:
     clock("lk", phase_lk_shift)
     smooth_launches, smooth_frames = clock("smooth", phase_smooth, sd_state, args.steps)
     profile_launches = clock("profile_sd", phase_profile_sd, sd_state, args.steps)
-    del sd_state
+    stages_launches, stages = clock("stages", phase_stages, sd_state)
+    anatomy_launches = clock("anatomy", phase_anatomy, sd_state, stages)
+    clock("compare", phase_compare, main_run)
+    del sd_state, main_run
     torch.cuda.empty_cache()
     sd21_launches = clock("sd21", phase_main_path, args.steps, "sd21", "sd21")[0]
     torch.cuda.empty_cache()
@@ -2743,7 +3014,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     clock("ad", phase_ad, args.ad_steps)
     torch.cuda.empty_cache()
-    sd3_launches = {"sd3": clock("sd3", phase_sd3, "sd3", args.sd3_steps)[0]}
+    recipe = start_recipe()
+    try:
+        sd3_launches, sd3_state = clock("sd3", phase_sd3, "sd3", args.sd3_steps)
+        clock("recipe", phase_recipe, recipe)
+    finally:
+        if recipe[0].poll() is None:
+            recipe[0].kill()
+            recipe[0].wait()
+    sd3_launches = {"sd3": sd3_launches,
+                    "sd3_anatomy": clock("sd3_anatomy", phase_sd3_anatomy, sd3_state)}
+    del sd3_state
     torch.cuda.empty_cache()
     sd3_launches["sd35m"], sd35m_state = clock("sd35m", phase_sd3, "sd35m", SD35M_STEPS)
     for k, v in clock("profile_sd35m", phase_profile_sd35m, sd35m_state).items():
@@ -2752,14 +3033,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     sd3_launches["sd35l"], _ = clock("sd35l", phase_sd3, "sd35l", args.sd35l_steps)
     torch.cuda.empty_cache()
-    mesh_launches, shard_cases, shard_tokens = clock("mesh", phase_mesh)
+    shard_cases, shard_tokens = clock("mesh_kernels", phase_mesh)
+    mesh_launches = clock("mesh", _mesh_jobs)
     torch.cuda.empty_cache()
     mesh_sd3_launches = clock("mesh_sd3", phase_mesh_sd3)
     mesh_sd3_tp_launches = clock("mesh_sd3_tp", phase_sd3_tp_forward)
 
     k1_paths = {"sd": sd_launches, "sd21": sd21_launches, "bench": bench_launches,
                 "sd_fallback": fallback_launches,
-                "smooth": smooth_launches, "profile": profile_launches, **mesh_launches}
+                "smooth": smooth_launches, "profile": profile_launches,
+                "stages": stages_launches, "anatomy": anatomy_launches, **mesh_launches}
     k1_paths = {k: v["video_flash_attention"] for k, v in k1_paths.items()}
     k2_paths = dict(sd3_launches, profile=profile_launches, **mesh_launches,
                     mesh_sd3=mesh_sd3_launches, mesh_sd3_tp=mesh_sd3_tp_launches)

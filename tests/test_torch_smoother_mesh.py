@@ -8,11 +8,10 @@ same numpy inputs.
   that both frameworks compute alike. One ``smooth_halo`` all-to-all a
   call, bringing exactly the +/-radius frames the rank's keys read; the
   flow function sees the rank's own keys' pairs, both directions.
-* The tiny SD pipeline's ``stylize_latents(smoother='pixel')`` over 2 and
-  4 ranks on the style-singleton, capture-and-inject and batched pre-pass
-  paths, and the
-  tiny AnimateDiff pipeline over 2 ranks: one ``smooth_halo`` all-to-all a
-  smoothing step.
+* The tiny AnimateDiff pipeline's ``stylize_latents(smoother='pixel')``
+  over 2 ranks: one ``smooth_halo`` all-to-all a smoothing step (the tiny
+  SD pipeline's, over 2 and 4 ranks on each phase-1 path, is in
+  ``test_torch_smoother_mesh_sd.py``, which shares this file's helpers).
 * ``run_workflow --mesh data=2 --smoother pixel``: rank 0 writes the
   one-process tree.
 
@@ -143,10 +142,7 @@ def test_sharded_smooth_census_is_one_halo_all_to_all_and_the_ranks_own_flows(
 
 N = 4
 SMOOTH = dict(num_steps=N, smoother="pixel", smoother_steps=(1, 3), smoother_radius=2)
-SD_SHIFT = dict(alpha=0.65, gamma=3.0, eta2=0.5, num_steps=N, window_mode="sd")
 AD_SHIFT = dict(alpha=0.8, gamma=2.0, eta2=0.5, num_steps=N, window_mode="ad")
-SD_PATHS = [dict(style_singleton=True), dict(style_singleton=False),
-            dict(style_singleton=False, style_prepass_chunk=2)]
 
 
 def _states(jp, unet_emit):
@@ -196,51 +192,6 @@ def _check_census(recs, batches, rank: int, n: int, nf: int = F, px: int = PX):
         assert halo == [("all_to_all", len(_reads(rank, n, radius, nf)) * px * px * 3 * 4)]
         assert all(site in ("smooth_halo", "vae_halo") for _, _, site, _ in step)
     assert batches == [2 * _own_pairs(rank, n, radius, nf)] * steps
-
-
-@pytest.fixture(scope="module")
-def sd_smooth_case():
-    from univst_tpu.pipelines.sd import SDVideoPipeline as JPipe
-    from univst_torch.models import convert as tcv
-
-    with seeded_init(0):
-        jp = JPipe.build(variant="tiny", num_frames=F, height=PX, width=PX, dtype=jnp.float32,
-                         capture_up_block=2, seed=0)
-    inputs = _pipe_inputs(0, 1)
-    states = _states(jp, tcv.flax_unet_to_state_dict)
-    one = [td.smoothed_stylization(None, "sd", states, F, inputs, SD_SHIFT, SMOOTH, [path])[0]
-           for path in SD_PATHS]
-    return states, inputs, _jax_stylize(jp, inputs, SD_SHIFT), one
-
-
-@pytest.fixture(scope="module")
-def sd_smooth_runs(sd_smooth_case, tmp_path_factory):
-    """Both SD paths on n ranks, one spawn per n."""
-    states, inputs, _, _ = sd_smooth_case
-    runs = {}
-
-    def get(n):
-        if n not in runs:
-            runs[n] = td.run_ranks(td.smoothed_stylization, n,
-                                   tmp_path_factory.mktemp(f"sd{n}"), "sd", states, F, inputs,
-                                   SD_SHIFT, SMOOTH, SD_PATHS)
-        return runs[n]
-
-    return get
-
-
-@pytest.mark.parametrize("n", [2, 4])
-@pytest.mark.parametrize("path", range(len(SD_PATHS)), ids=["singleton", "capture", "prepass"])
-def test_sharded_sd_stylization_with_the_smoother_matches_one_process_and_jax(
-        n, path, sd_smooth_case, sd_smooth_runs):
-    _, _, want, one = sd_smooth_case
-    per_rank = sd_smooth_runs(n)
-    got = per_rank[0][path][0]
-    assert got.shape == want.shape == (F, PX // 2, PX // 2, 4)
-    np.testing.assert_allclose(got.numpy(), one[path][0].numpy(), rtol=2e-4, atol=2e-5)
-    assert rel_err(got, want) < 1e-3
-    for rank, runs in enumerate(per_rank):
-        _check_census(runs[path][1], runs[path][2], rank, n)
 
 
 AD_F, AD_PX = 4, 64
