@@ -121,9 +121,11 @@ none catches its own failure:
    themselves, every gate passing, LPIPS on the card with seed-0 AlexNet
    weights; with one frame inverted ``--psnr-min 40`` exits 1) and
    ``[recipe]`` (``tools/start_sd.sh`` as a subprocess on the card, full
-   width, random weights, on ``demo-fly-tiny``'s 4 frames at 64 px and
-   the CLIs' 50 steps, beside ``[sd3]``; gated: both trajectories, {0,
-   255} masks, stylized frames). After ``[sd3]``, on its pipeline,
+   width, ``PRETRAINED`` at ``[weights_day]``'s SD-1.5 directory, on
+   ``demo-fly-tiny``'s 4 frames at 64 px and the CLIs' 50 steps, beside
+   ``[sd3]``; gated: the three model stages loaded the directory, both
+   trajectories, {0, 255} masks, stylized frames). After ``[sd3]``, on
+   its pipeline,
    ``[sd3_anatomy]`` (``bench_sd3_anatomy``'s three probes: the segments
    over ``SD3_SEGMENT_STEPS`` steps, one step of each traced, and the
    MMDiT forwards at 2F, F and 1 frame; gated: each segment's output
@@ -133,6 +135,17 @@ none catches its own failure:
    ``err_over_tol`` <= 1 of its plain version; the GEMMs). The tools' rows
    are timed at ``TOOL_REPS`` = 1; ``[anatomy]`` takes its chunk rows from
    ``[stages]`` (the same calls on the same inputs).
+10c. Weights day (``[weights_day]``, after ``[compare]``):
+   ``tools/make_synthetic_checkpoints`` writes the SD-1.5 and
+   AnimateDiff-v2 checkpoint directories at full width (seed 0, fp32,
+   10.46 GB) under ``results/``, with the port's own safetensors writer;
+   ``SDVideoPipeline.build`` and ``build_animatediff`` load them in bf16
+   (warm reads). Gated: both loaded pipelines hold the seed-0 builds'
+   parameters and buffers bit for bit (SD-1.5: ``[main]``'s own); one
+   16-frame 512 px B = 1 UNet forward of the loaded SD-1.5 equals the
+   seeded one's bit for bit, 10 K1 launches; a renamed key and a missing
+   shard are refused. Printed: GB and seconds of the write and of each
+   load, host RSS, the card. The directory is removed after ``[recipe]``.
 11. Frame parallelism (``[mesh]``, ``univst_torch.distributed``): K1's
    shard form (q of a rank's frames, K/V of its frames and the halo frames
    its index set reads, explicit slot tables; rank 1 of 2 at
@@ -146,7 +159,10 @@ none catches its own failure:
    SD-1.5 bf16 at 512 px / 16 frames / 6 steps over 2 ranks; SD-1.5 fp32
    at 256 px / 8 frames / 6 steps over 2 and 4 ranks; AnimateDiff-v2 bf16
    at 512 px / 16 frames / 6 steps over 2 ranks; each against a
-   one-process run at its steps (``MESH_JOBS``). Each rank prints its stage
+   one-process run at its steps (``MESH_JOBS``), which this process runs
+   while the job's ranks build and run their workflow (the ranks wait for
+   its inputs before the checks that read them; the gloo ranks take the
+   host's time, the one-card runs the card's). Each rank prints its stage
    seconds, its collective census per stage and per inversion forward, the
    host milliseconds in collectives, its peak memory and its launches (K1:
    10 per SD forward at 512 px, 5 at 256 px). Gated: the workflow finite,
@@ -192,9 +208,9 @@ none catches its own failure:
 Each path's launch counters are zeroed just before it and read just after;
 a kernel's ``launches`` in the JSON line is the sum over its paths, each
 path's own count under ``launches_by_path`` (K1: the SD, SD-2.1, bench,
-SD-fallback, smoother, profile, stages, anatomy, mesh and mesh_smooth
-paths; K2: SD3-medium, its anatomy's segments and forwards, SD3.5-medium,
-SD3.5-large, profile, mesh, mesh_sd3 and mesh_sd3_tp). The
+SD-fallback, weights_day, smoother, profile, stages, anatomy, mesh and
+mesh_smooth paths; K2: SD3-medium, its anatomy's segments and forwards,
+SD3.5-medium, SD3.5-large, profile, mesh, mesh_sd3 and mesh_sd3_tp). The
 last line is ``{"ok": true, "device": {...}}``; the lines before it hold
 the per-kernel JSON and the card's name and power limit. Any failed check
 exits non-zero. ``--steps``
@@ -218,6 +234,7 @@ import dataclasses
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1510,20 +1527,20 @@ RECIPE_DIR = os.path.join(REPO, "results", "recipe")
 RECIPE_MASK = os.path.join(REPO, "examples", "masks", "demo-fly-tiny.png")
 
 
-def start_recipe():
+def start_recipe(pretrained: str):
     """Start ``univst_torch/tools/start_sd.sh`` as a subprocess on the card,
-    in ``RECIPE_DIR``: the four CLIs of the SD workflow at full width with
-    random weights, on the committed ``demo-fly-tiny`` clip (4 frames, 64
-    px), its mask and the ``00033`` style, at the CLIs' 50 steps. It runs
-    beside ``[sd3]``, a path whose time is the card's (its stage seconds
-    then hold the recipe's share of the card); its output goes to
-    ``RECIPE_DIR/log.txt``. Returns ``(process, start time)``."""
-    import shutil
-
+    in ``RECIPE_DIR``: the four CLIs of the SD workflow at full width, the
+    three model stages loading the checkpoint directory ``pretrained``
+    (``PRETRAINED``; ``[weights_day]``'s SD-1.5 one), on the committed
+    ``demo-fly-tiny`` clip (4 frames, 64 px), its mask and the ``00033``
+    style, at the CLIs' 50 steps. It runs beside ``[sd3]``, a path whose
+    time is the card's (its stage seconds then hold the recipe's share of
+    the card); its output goes to ``RECIPE_DIR/log.txt``. Returns
+    ``(process, start time)``."""
     ex = os.path.join(REPO, "examples")
     shutil.rmtree(RECIPE_DIR, ignore_errors=True)
     os.makedirs(RECIPE_DIR)
-    env = dict(os.environ, PYTHON=sys.executable,
+    env = dict(os.environ, PYTHON=sys.executable, PRETRAINED=pretrained,
                CONTENT=os.path.join(ex, "contents", "demo-fly-tiny"), MASK=RECIPE_MASK,
                STYLE=os.path.join(ex, "styles", "00033.png"),
                ARGS="--num_frames 4 --height 64 --width 64")
@@ -1538,9 +1555,11 @@ def start_recipe():
 
 def phase_recipe(started) -> dict:
     """Wait for :func:`start_recipe`'s run and check its tree. Gated: the
-    recipe exits 0; the tree holds both trajectories (51 files each), the
-    input mask as frame 0 and {0, 255} masks for the propagated frames,
-    and 4 stylized non-constant 64 px frames."""
+    recipe exits 0; its three model stages each loaded the checkpoint
+    directory (their ``loaded checkpoint directory`` lines); the tree holds
+    both trajectories (51 files each), the input mask as frame 0 and {0,
+    255} masks for the propagated frames, and 4 stylized non-constant 64 px
+    frames."""
     import numpy as np
     from PIL import Image
 
@@ -1561,8 +1580,9 @@ def phase_recipe(started) -> dict:
     first = np.asarray(Image.open(RECIPE_MASK))
     frame_dir = os.path.join(out, "stylizations", "sd", "demo-fly-tiny_00033")
     frames = [np.asarray(Image.open(os.path.join(frame_dir, f"{i:05d}.png"))) for i in range(4)]
+    loaded = text.count("loaded checkpoint directory ")
     summary = dict(seconds=own[-1] if own else None, seconds_since_start=took,
-                   trajectory_files=trajs,
+                   trajectory_files=trajs, clis_that_loaded_the_directory=loaded,
                    first_mask_is_the_input=bool(np.array_equal(masks[0], first)),
                    mask_values=sorted({int(v) for m in masks[1:] for v in np.unique(m)}),
                    frames=[list(f.shape) for f in frames],
@@ -1570,11 +1590,201 @@ def phase_recipe(started) -> dict:
     print("[recipe] " + json.dumps(summary), flush=True)
     if trajs != {"content": 51, "style": 51}:
         raise AssertionError(f"recipe: trajectory files {trajs}")
+    if loaded != 3:
+        raise AssertionError(f"recipe: {loaded} of the 3 model stages loaded the checkpoint "
+                             "directory")
     if not summary["first_mask_is_the_input"] or not set(summary["mask_values"]) <= {0, 255}:
         raise AssertionError(f"recipe: masks {summary}")
     if any(s != [64, 64, 3] for s in summary["frames"]) or not min(summary["frame_std"]) > 0:
         raise AssertionError(f"recipe: stylized frames {summary}")
     return summary
+
+
+# ---------------------------------------------------------------------------
+# [weights_day]: checkpoint directories written and loaded at full width
+# ---------------------------------------------------------------------------
+
+# the tool's SD-1.5 and AnimateDiff-v2 directories in fp32 (4.32 + 6.13 GB),
+# the text encoder's copy for a planted fault (0.49 GB), and room to spare
+WEIGHTS_DAY_FREE_BYTES = 16e9
+
+
+def _rss_gb() -> dict:
+    """The host process's resident memory now and its peak so far, in GB."""
+    import resource
+
+    with open("/proc/self/statm") as f:
+        now = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024  # KiB on Linux
+    return dict(now=now / 1e9, peak=peak / 1e9)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(base, f))
+               for base, _, files in os.walk(path) for f in files)
+
+
+def _state_diff(got, want) -> list:
+    """The names of ``want``'s parameters and buffers that ``got`` lacks or
+    holds with another dtype or other bits, and the names it has beyond."""
+    import torch
+
+    a = dict(got.named_parameters()) | dict(got.named_buffers())
+    b = dict(want.named_parameters()) | dict(want.named_buffers())
+    return sorted(set(a) ^ set(b)) + [k for k in b if k in a and (
+        a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]))]
+
+
+def _planted_faults(root: str, sd_dir: str) -> dict:
+    """Two broken copies of the SD-1.5 text encoder's folder, each of which
+    the strict load must refuse: one key renamed (the error names the key),
+    and a shard index naming a second shard that is not there (the first is
+    a link to the real file). Returns each error's first line."""
+    import json as _json
+    import warnings
+
+    import torch
+
+    from univst_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from univst_torch.models.convert import load_pretrained
+    from univst_torch.utils.safetensors import load_file, save_file
+
+    good = os.path.join(sd_dir, "text_encoder", "model.safetensors")
+    sd = load_file(good)
+    key = "text_model.final_layer_norm.weight"
+    renamed = os.path.join(root, "fault_key")
+    os.makedirs(os.path.join(renamed, "text_encoder"))
+    save_file({(k + "_renamed" if k == key else k): v for k, v in sd.items()},
+              os.path.join(renamed, "text_encoder", "model.safetensors"))
+    shards = os.path.join(root, "fault_shard")
+    os.makedirs(os.path.join(shards, "text_encoder"))
+    first, second = "model-00001-of-00002.safetensors", "model-00002-of-00002.safetensors"
+    os.symlink(good, os.path.join(shards, "text_encoder", first))
+    keys = sorted(sd)
+    with open(os.path.join(shards, "text_encoder", "model.safetensors.index.json"), "w") as f:
+        _json.dump({"weight_map": {k: first if i % 2 else second for i, k in enumerate(keys)}},
+                   f)
+    del sd
+    with torch.device("meta"):  # the key checks need no storage
+        text = CLIPTextModel(CLIPTextConfig.sd15())
+    out = {}
+    for name, path, errors, needle in (("renamed_key", renamed, RuntimeError, key),
+                                       ("missing_shard", shards, FileNotFoundError, second)):
+        try:
+            with warnings.catch_warnings():  # copies into meta tensors are no-ops
+                warnings.simplefilter("ignore")
+                load_pretrained(path, text_encoder=text)
+        except errors as e:
+            if needle not in str(e):
+                raise AssertionError(f"weights_day: the {name} fault's error does not name "
+                                     f"{needle}: {e}") from e
+            out[name] = str(e).splitlines()[0][:240]
+        else:
+            raise AssertionError(f"weights_day: the planted {name} fault loaded")
+    return out
+
+
+def phase_weights_day(sd_state, steps: int):
+    """Write the SD-1.5 and AnimateDiff-v2 checkpoint directories at full
+    width with ``univst_torch.tools.make_synthetic_checkpoints`` (seed 0,
+    fp32, on the card) under ``results/``, then load them as a user's run
+    does. Gated: ``SDVideoPipeline.build(pretrained_model_path=...)`` in
+    bf16 holds every parameter and buffer of ``[main]``'s seed-0 pipeline
+    bit for bit; one 16-frame 512 px B = 1 UNet forward of it (inversion's,
+    at step ``steps // 2``) equals the seeded pipeline's bit for bit, with 10
+    K1 launches; the AnimateDiff pipeline loaded from its directory and
+    ``mm.ckpt`` equals a fresh seed-0 ``build_animatediff`` (bf16) bit for
+    bit; both planted faults (:func:`_planted_faults`) are refused. Both
+    loaded builds draw their own init from seed 1 first, so a key that did
+    not load would show. The reads are warm: the files were just written.
+    Returns ``(launches, the directory)``; the caller removes it once
+    ``[recipe]`` has run the SD CLIs from its ``sd`` folder."""
+    import tempfile
+
+    import torch
+
+    from univst_torch.core.config import SD_BASE_FRAME_INDICES
+    from univst_torch.pipelines.animatediff import build_animatediff
+    from univst_torch.pipelines.sd import SDVideoPipeline
+    from univst_torch.tools import make_synthetic_checkpoints as msc
+
+    base = os.path.join(REPO, "results")
+    os.makedirs(base, exist_ok=True)
+    free = shutil.disk_usage(base).free
+    if free < WEIGHTS_DAY_FREE_BYTES:
+        raise AssertionError(f"weights_day: {free / 1e9:.1f} GB free under {base}, "
+                             f"{WEIGHTS_DAY_FREE_BYTES / 1e9:.0f} GB needed")
+    root = tempfile.mkdtemp(prefix="weights_day_", dir=base)
+    sd_dir, ad_dir = os.path.join(root, "sd"), os.path.join(root, "ad")
+    rss = {"before": _rss_gb()}
+    kw = dict(num_frames=16, dtype=torch.bfloat16, capture_up_block=2, device="cuda")
+    try:
+        t0 = time.time()
+        written = msc.main(["--root", root, "--families", "sd,ad", "--variant", "sd15",
+                            "--frames", "16"])
+        tool_s = time.time() - t0
+        torch.cuda.empty_cache()
+        rss["written"] = _rss_gb()
+
+        t0 = time.time()
+        loaded = SDVideoPipeline.build(pretrained_model_path=sd_dir, variant="sd15", seed=1, **kw)
+        _sync()
+        sd_load_s = time.time() - t0
+        rss["sd_loaded"] = _rss_gb()
+        pipe, traj, _, ctx, _, _ = sd_state
+        diff = [(n, _state_diff(getattr(loaded, n), getattr(pipe, n)))
+                for n in ("unet", "vae", "text_encoder")]
+        if any(d for _, d in diff):
+            raise AssertionError(f"weights_day: SD-1.5 loaded != [main]'s seed-0 build: "
+                                 f"{[(n, d[:5]) for n, d in diff if d]}")
+        i = steps // 2
+        t = int(pipe.schedule.timesteps(steps)[i])
+        with torch.inference_mode():
+            want = pipe._denoise_fn(ctx, SD_BASE_FRAME_INDICES, None)(traj[i], t, i)
+            counters = _zero_counters()
+            got = loaded._denoise_fn(ctx, SD_BASE_FRAME_INDICES, None)(traj[i], t, i)
+            _sync()
+            launches = {k: f.launches for k, f in counters.items()}
+        same = [torch.equal(g, w) if w is not None else g is None for g, w in zip(got, want)]
+        _check_launches(launches, {"video_flash_attention": 10,
+                                   "video_flash_attention_tokens": 0})
+        if not all(same):
+            raise AssertionError(f"weights_day: the loaded UNet's forward differs from the "
+                                 f"seeded one's (eps, feature equal: {same})")
+        del loaded, got, want
+        torch.cuda.empty_cache()
+
+        t0 = time.time()
+        ad = build_animatediff(pretrained_model_path=ad_dir,
+                               motion_module_path=os.path.join(ad_dir, "mm.ckpt"), variant="ad",
+                               seed=1, **kw)
+        _sync()
+        ad_load_s = time.time() - t0
+        rss["ad_loaded"] = _rss_gb()
+        seeded = build_animatediff(variant="ad", seed=0, **kw)
+        diff = [(n, _state_diff(getattr(ad, n), getattr(seeded, n)))
+                for n in ("unet", "vae", "text_encoder")]
+        if any(d for _, d in diff):
+            raise AssertionError(f"weights_day: AnimateDiff loaded != a seed-0 build: "
+                                 f"{[(n, d[:5]) for n, d in diff if d]}")
+        del ad, seeded
+        torch.cuda.empty_cache()
+        faults = _planted_faults(root, sd_dir)
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    rss["after"] = _rss_gb()
+    sd_gb, ad_gb = _dir_bytes(sd_dir) / 1e9, _dir_bytes(ad_dir) / 1e9
+    summary = dict(
+        written_gb=written["bytes"] / 1e9, files=written["files"], write_s=written["write_s"],
+        write_gb_per_s=written["bytes"] / 1e9 / written["write_s"], tool_s=tool_s,
+        sd_read_gb=sd_gb, sd_load_s=sd_load_s, sd_load_gb_per_s=sd_gb / sd_load_s,
+        ad_read_gb=ad_gb, ad_load_s=ad_load_s, ad_load_gb_per_s=ad_gb / ad_load_s,
+        reads="warm (page cache: the files were just written)",
+        host_rss_gb=rss, loaded_equal_seeded={"sd": True, "ad": True, "forward": True},
+        launches=launches, faults_refused=faults, device=_nvidia_smi())
+    print("[weights_day] " + json.dumps(summary), flush=True)
+    return launches, root
 
 
 # ---------------------------------------------------------------------------
@@ -1801,16 +2011,17 @@ def _rank_mesh(rank: int, n: int, out_dir: str, n_tensor: int = 1):
     return make_mesh(n_tensor=n_tensor, device="cuda:0")
 
 
-def _mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe: dict):
+def _mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int):
     """One rank of a ``[mesh]`` job: a gloo process group over a file store,
     every rank on ``cuda:0``; the pipeline built as the one-process phases
     build it, replicated from rank 0 (``with_mesh``), then the workflow on
-    the rank's frames, the forward pair on the reference's inputs, and each
-    stage once more on the stage inputs of the one-card run in
-    ``out_dir/fed.pt`` (``_stage_fed``), and in ``MESH_SMOOTH_JOB`` the
-    smoothed stylization and smoothing steps (``_mesh_smooth``). Each rank
-    writes its counts and times; rank 0 also the gathered outputs. Nothing
-    is caught: a failure ends the job."""
+    the rank's frames; then, once the script's process has published its
+    one-card runs (``_await_fed``), the forward pair on the reference's
+    inputs and each stage once more on the one-card run's stage inputs
+    (``_stage_fed``), and in ``MESH_SMOOTH_JOB`` the smoothed stylization
+    and smoothing steps (``_mesh_smooth``). Each rank writes its counts and
+    times; rank 0 also the gathered outputs. Nothing is caught: a failure
+    ends the job."""
     import torch
     import torch.distributed as dist
 
@@ -1840,9 +2051,9 @@ def _mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe: dic
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
     print(f"[mesh] {json.dumps(stats)}", flush=True)
     torch.save(stats, os.path.join(out_dir, f"stats{rank}.pt"))
-    forward = _forward_pair(pipe, probe)  # on the reference's inputs
+    fed_in = _await_fed(out_dir)
+    forward = _forward_pair(pipe, fed_in["probe"])  # on the reference's inputs
     t0 = time.time()
-    fed_in = torch.load(os.path.join(out_dir, "fed.pt"), weights_only=False)
     fed = _stage_fed(pipe, backbone, steps, nf, px, fed_in)
     print(f"[mesh] {job} r{rank}: stage-fed stages in {time.time() - t0:.1f}s", flush=True)
     smooth = None
@@ -1861,11 +2072,32 @@ def _mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe: dic
     dist.destroy_process_group()
 
 
-def _run_mesh_job(job: str, steps: int, probe: dict, fed: dict):
-    """Spawn the job's ranks (never fork after CUDA init) and wait; a rank
-    that raises ends the script. ``fed``: the one-card run whose stage
-    inputs the stage-fed checks take. Returns rank 0's outputs and every
-    rank's stats."""
+# the longest a rank waits for the script's one-card runs (``_await_fed``)
+MESH_FED_WAIT_S = 900
+
+
+def _await_fed(out_dir: str) -> dict:
+    """In a rank: the one-card run's probe and stage inputs, once the
+    script's process has published them in ``out_dir/fed.pt``."""
+    import torch
+
+    path, t0 = os.path.join(out_dir, "fed.pt"), time.time()
+    while not os.path.exists(path):
+        if time.time() - t0 > MESH_FED_WAIT_S:
+            raise TimeoutError(f"no one-card inputs in {path} after {MESH_FED_WAIT_S} s")
+        time.sleep(0.5)
+    return torch.load(path, weights_only=False)
+
+
+def _run_mesh_job(job: str, steps: int, prepare):
+    """Spawn the job's ranks (never fork after CUDA init), and while they
+    build and run their workflow (gloo through host memory: the host's
+    time), run ``prepare()`` here: the one-card runs (the card's time),
+    which return ``(probe, fed, refs)``. The probe and ``fed``'s stage
+    inputs go to the ranks in ``out_dir/fed.pt`` (written whole, then
+    renamed into place); then wait for the ranks. A rank that raises, or a
+    failure here, ends the job and its ranks. Returns rank 0's outputs,
+    every rank's stats and ``refs``."""
     import tempfile
 
     import torch
@@ -1876,11 +2108,21 @@ def _run_mesh_job(job: str, steps: int, probe: dict, fed: dict):
     else:
         n, target = SD3_MESH_JOBS[job][4] * SD3_MESH_JOBS[job][5], _sd3_mesh_rank
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "results")) as out_dir:
-        torch.save({k: fed[k] for k in FED_INPUTS + ("pooled", "smooth_in", "smooth_ref")
-                    if k in fed},
-                   os.path.join(out_dir, "fed.pt"))
         t0 = time.time()
-        mp.spawn(target, args=(n, out_dir, job, steps, probe), nprocs=n, join=True)
+        ranks = mp.spawn(target, args=(n, out_dir, job, steps), nprocs=n, join=False)
+        try:
+            probe, fed, refs = prepare()
+            tmp = os.path.join(out_dir, "fed.pt.tmp")
+            torch.save(dict({k: fed[k] for k in FED_INPUTS + ("pooled", "smooth_in", "smooth_ref")
+                             if k in fed}, probe=probe), tmp)
+            os.replace(tmp, os.path.join(out_dir, "fed.pt"))
+            while not ranks.join():
+                pass
+        finally:
+            for proc in ranks.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
         wall = time.time() - t0
         stats = [torch.load(os.path.join(out_dir, f"stats{r}.pt"), weights_only=False)
                  for r in range(n)]
@@ -1889,8 +2131,8 @@ def _run_mesh_job(job: str, steps: int, probe: dict, fed: dict):
             if os.path.exists(path):
                 st["smooth"] = torch.load(path, weights_only=False)
         result = torch.load(os.path.join(out_dir, "result.pt"), weights_only=False)
-    print(f"[mesh] {job}: {n} ranks in {wall:.1f}s", flush=True)
-    return result, stats
+    print(f"[mesh] {job}: {n} ranks in {wall:.1f}s (the one-card runs beside them)", flush=True)
+    return result, stats, refs
 
 
 def _psnr_frames(got, want):
@@ -2501,24 +2743,28 @@ def _mesh_jobs() -> dict:
     for job, (backbone, dtype_name, px, nf, n, steps) in MESH_JOBS.items():
         t0 = time.time()
         smooth = job == MESH_SMOOTH_JOB
-        if dtype_name == "bf16":
-            floor = _one_process(backbone, "fp32", px, nf, steps, f"mesh {job} fp32 floor",
-                                 forward=False, encode_parts=(2,) if backbone == "sd" else (),
-                                 smooth=smooth)
-            ref = _one_process(backbone, "bf16", px, nf, steps, f"mesh {job} one card",
-                               fed=floor, smooth=smooth)
-            fed_ref, one_fed = floor, ref["fed"]
-            if smooth:
-                fed_ref = dict(floor, smooth_ref={k: ref["smooth"][k] for k in (
-                    "px", "sm_lk", "sm_raft", "step_lk", "step_raft")})
-        else:
-            key = (backbone, px, nf, steps)
-            if key not in refs:
-                refs[key] = _one_process(backbone, "fp32", px, nf, steps, f"mesh {job} one card",
-                                         encode_parts=(2, 4))
-            ref = fed_ref = refs[key]
-            floor = one_fed = None
-        result, stats = _run_mesh_job(job, steps, ref["probe"], fed_ref)
+
+        def prepare():
+            if dtype_name == "bf16":
+                floor = _one_process(backbone, "fp32", px, nf, steps, f"mesh {job} fp32 floor",
+                                     forward=False, encode_parts=(2,) if backbone == "sd" else (),
+                                     smooth=smooth)
+                ref = _one_process(backbone, "bf16", px, nf, steps, f"mesh {job} one card",
+                                   fed=floor, smooth=smooth)
+                fed_ref, one_fed = floor, ref["fed"]
+                if smooth:
+                    fed_ref = dict(floor, smooth_ref={k: ref["smooth"][k] for k in (
+                        "px", "sm_lk", "sm_raft", "step_lk", "step_raft")})
+            else:
+                key = (backbone, px, nf, steps)
+                if key not in refs:
+                    refs[key] = _one_process(backbone, "fp32", px, nf, steps,
+                                             f"mesh {job} one card", encode_parts=(2, 4))
+                ref = fed_ref = refs[key]
+                floor = one_fed = None
+            return ref["probe"], fed_ref, (ref, fed_ref, one_fed, floor)
+
+        result, stats, (ref, fed_ref, one_fed, floor) = _run_mesh_job(job, steps, prepare)
         forwards = 3 * steps  # inversion, reconstruction, stylization: one a step
         per_forward = 0 if backbone == "ad" else (10 if px == 512 else 5)
         for st in stats:
@@ -2725,7 +2971,7 @@ def _one_process_sd3(variant: str, dtype_name: str, px: int, nf: int, steps: int
     return out
 
 
-def _sd3_mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe: dict):
+def _sd3_mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int):
     """One rank of an SD3 ``[mesh]`` job (``SD3_MESH_JOBS``): as
     ``_mesh_rank``, on a ``data x tensor`` mesh. The ranks build one at a
     time, each encoding the prompt and freeing its text encoders before the
@@ -2772,10 +3018,10 @@ def _sd3_mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int, probe:
                  launches=launches)
     print(f"[mesh] {json.dumps(stats)}", flush=True)
     torch.save(stats, os.path.join(out_dir, f"stats{rank}.pt"))
-    forward = _forward_pair_sd3(pipe, probe)
+    fed_in = _await_fed(out_dir)
+    forward = _forward_pair_sd3(pipe, fed_in["probe"])
     t0 = time.time()
-    fed = _stage_fed_sd3(pipe, steps, nf, px,
-                         torch.load(os.path.join(out_dir, "fed.pt"), weights_only=False))
+    fed = _stage_fed_sd3(pipe, steps, nf, px, fed_in)
     print(f"[mesh] {job} r{rank}: stage-fed stages in {time.time() - t0:.1f}s", flush=True)
     if rank == 0:
         result = {k: w[k].cpu() for k in WF_KEYS}
@@ -2804,12 +3050,17 @@ def phase_mesh_sd3() -> dict:
     launches = {"video_flash_attention": 0, "video_flash_attention_tokens": 0}
     for job, (variant, _, px, nf, _, _, steps) in SD3_MESH_JOBS.items():
         t0 = time.time()
-        floor = _one_process_sd3(variant, "fp32", px, nf, steps, f"mesh {job} fp32 floor",
-                                 forward=False)
-        ref = _one_process_sd3(variant, "bf16", px, nf, steps, f"mesh {job} one card",
-                               fed=floor)
-        print(f"[mesh] {job}: floor and one-card runs in {time.time() - t0:.1f}s", flush=True)
-        result, stats = _run_mesh_job(job, steps, ref["probe"], floor)
+
+        def prepare():
+            floor = _one_process_sd3(variant, "fp32", px, nf, steps, f"mesh {job} fp32 floor",
+                                     forward=False)
+            ref = _one_process_sd3(variant, "bf16", px, nf, steps, f"mesh {job} one card",
+                                   fed=floor)
+            print(f"[mesh] {job}: floor and one-card runs in {time.time() - t0:.1f}s "
+                  "(beside the ranks)", flush=True)
+            return ref["probe"], floor, (ref, floor)
+
+        result, stats, (ref, floor) = _run_mesh_job(job, steps, prepare)
         for st in stats:
             for name in launches:
                 launches[name] += st["launches"][name]
@@ -3005,23 +3256,28 @@ def main(argv=None) -> int:
     stages_launches, stages = clock("stages", phase_stages, sd_state)
     anatomy_launches = clock("anatomy", phase_anatomy, sd_state, stages)
     clock("compare", phase_compare, main_run)
+    weights_launches, weights_dir = clock("weights_day", phase_weights_day, sd_state,
+                                          args.steps)
     del sd_state, main_run
     torch.cuda.empty_cache()
-    sd21_launches = clock("sd21", phase_main_path, args.steps, "sd21", "sd21")[0]
-    torch.cuda.empty_cache()
-    clock("raft", phase_raft, smooth_frames)
-    del smooth_frames
-    torch.cuda.empty_cache()
-    clock("ad", phase_ad, args.ad_steps)
-    torch.cuda.empty_cache()
-    recipe = start_recipe()
     try:
-        sd3_launches, sd3_state = clock("sd3", phase_sd3, "sd3", args.sd3_steps)
-        clock("recipe", phase_recipe, recipe)
+        sd21_launches = clock("sd21", phase_main_path, args.steps, "sd21", "sd21")[0]
+        torch.cuda.empty_cache()
+        clock("raft", phase_raft, smooth_frames)
+        del smooth_frames
+        torch.cuda.empty_cache()
+        clock("ad", phase_ad, args.ad_steps)
+        torch.cuda.empty_cache()
+        recipe = start_recipe(os.path.join(weights_dir, "sd"))
+        try:
+            sd3_launches, sd3_state = clock("sd3", phase_sd3, "sd3", args.sd3_steps)
+            clock("recipe", phase_recipe, recipe)
+        finally:
+            if recipe[0].poll() is None:
+                recipe[0].kill()
+                recipe[0].wait()
     finally:
-        if recipe[0].poll() is None:
-            recipe[0].kill()
-            recipe[0].wait()
+        shutil.rmtree(weights_dir, ignore_errors=True)
     sd3_launches = {"sd3": sd3_launches,
                     "sd3_anatomy": clock("sd3_anatomy", phase_sd3_anatomy, sd3_state)}
     del sd3_state
@@ -3040,7 +3296,7 @@ def main(argv=None) -> int:
     mesh_sd3_tp_launches = clock("mesh_sd3_tp", phase_sd3_tp_forward)
 
     k1_paths = {"sd": sd_launches, "sd21": sd21_launches, "bench": bench_launches,
-                "sd_fallback": fallback_launches,
+                "sd_fallback": fallback_launches, "weights_day": weights_launches,
                 "smooth": smooth_launches, "profile": profile_launches,
                 "stages": stages_launches, "anatomy": anatomy_launches, **mesh_launches}
     k1_paths = {k: v["video_flash_attention"] for k, v in k1_paths.items()}

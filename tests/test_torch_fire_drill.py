@@ -16,6 +16,11 @@ the same ``synth_ckpt`` functions and the script's ``_save``; the SD CLI
 reaches it through ``--variant sd21`` with the variant's configs set to
 those widths, as no tiny SD-2.1 variant exists in either package.
 
+The port writes its own directories too
+(``univst_torch.tools.make_synthetic_checkpoints``, tiny, on the CPU): the
+SD, AD and SD3 content-inversion CLIs run from them as well
+(``test_cli_loads_the_ports_own_directory``).
+
 Checked: each CLI writes its trajectory files; the SD-2.1 workflow writes
 the whole tree ({0, 255} masks, stylized frames); the checkpoint's values
 are the ones the pipeline holds; a renamed key fails the strict load.
@@ -73,6 +78,16 @@ def ckpt_root(tmp_path_factory):
     return root
 
 
+@pytest.fixture(scope="module")
+def port_root(tmp_path_factory):
+    """``sd``, ``ad`` and ``sd3`` directories written by the port's tool."""
+    from univst_torch.tools import make_synthetic_checkpoints as msc
+
+    root = tmp_path_factory.mktemp("port_ckpt")
+    msc.main(["--root", str(root), "--frames", str(FRAMES), "--platform", "cpu"])
+    return root
+
+
 @pytest.fixture
 def sd21_variant(monkeypatch):
     """``--variant sd21`` builds SD-2.1's topology at the tiny widths (and
@@ -111,6 +126,31 @@ def test_ad_cli_loads_synth_checkpoint_and_motion_module(ckpt_root, tmp_path):
     z = _latents(tmp_path / "animatediff" / "demo-fly-tiny" / "inversion"
                  / f"ddim_latents_{STEPS}.pt")
     assert z.shape[:3] == (1, 4, FRAMES)
+
+
+PORT_CLIS = {
+    # family: (CLI module, its extra flags, the trajectory's directory under
+    # the output, the leading dims of a trajectory file: SD3 batches frames)
+    "sd": ("run_content_inversion_sd", ("--ft_timesteps", "501"), "sd", (1, 4, FRAMES)),
+    "ad": ("run_content_inversion_animatediff", ("--motion_module_path", "{root}/ad/mm.ckpt"),
+           "animatediff", (1, 4, FRAMES)),
+    "sd3": ("run_content_inversion_sd3", ("--ft_indices", "1", "--ft_timesteps", "1"), "sd3",
+            (FRAMES, 16)),
+}
+
+
+@pytest.mark.parametrize("family", sorted(PORT_CLIS))
+def test_cli_loads_the_ports_own_directory(port_root, family, tmp_path):
+    import importlib
+
+    name, extra, sub, dims = PORT_CLIS[family]
+    cli = importlib.import_module(f"univst_torch.cli.{name}")
+    cli.main(cli.build_parser().parse_args(_common(
+        "tiny", "--pretrained_model_path", str(port_root / family),
+        *(a.format(root=port_root) for a in extra),
+        "--content_path", CONTENT, "--output_path", str(tmp_path))))
+    z = _latents(tmp_path / sub / "demo-fly-tiny" / "inversion" / f"ddim_latents_{STEPS}.pt")
+    assert tuple(z.shape[:len(dims)]) == dims
 
 
 def test_ad_motion_module_values_transported(ckpt_root):

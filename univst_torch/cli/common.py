@@ -12,6 +12,8 @@ output tree, the other ranks write nothing.
 from __future__ import annotations
 
 import os
+import sys
+import time
 from typing import Optional
 
 import numpy as np
@@ -146,10 +148,11 @@ def build_pipeline_from_args(args, capture_up_block=None, num_frames=None):
         device=setup_device(args.platform) if mesh is None else mesh.device,
         mesh=mesh,
     )
+    t0 = time.perf_counter()
     if args.backbone == "animatediff":
         from univst_torch.pipelines.animatediff import build_animatediff
 
-        return build_animatediff(
+        pipe = build_animatediff(
             motion_module_path=getattr(args, "motion_module_path", None),
             dreambooth_path=getattr(args, "dreambooth_path", None),
             lora_path=getattr(args, "lora_path", None),
@@ -157,9 +160,21 @@ def build_pipeline_from_args(args, capture_up_block=None, num_frames=None):
             variant="tiny" if args.variant == "tiny" else "ad",
             **kw,
         )
-    from univst_torch.pipelines.sd import SDVideoPipeline
+    else:
+        from univst_torch.pipelines.sd import SDVideoPipeline
 
-    return SDVideoPipeline.build(variant=args.variant, **kw)
+        pipe = SDVideoPipeline.build(variant=args.variant, **kw)
+    report_load(args.pretrained_model_path, t0)
+    return pipe
+
+
+def report_load(path: Optional[str], t0: float) -> None:
+    """On stderr, the seconds a pipeline took to build from checkpoint
+    directory ``path`` (nothing without one), from ``time.perf_counter()``
+    at ``t0``."""
+    if path:
+        print(f"loaded checkpoint directory {path} in {time.perf_counter() - t0:.1f}s",
+              file=sys.stderr, flush=True)
 
 
 def add_mesh_flag(parser):

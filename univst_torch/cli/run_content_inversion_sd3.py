@@ -14,10 +14,11 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 
 from univst_torch.cli.common import (
-    add_mesh_flag, generator_for, is_writer, make_output_tree, parse_dtype, save_feature_pt,
-    setup_device, setup_mesh,
+    add_mesh_flag, generator_for, is_writer, make_output_tree, parse_dtype, report_load,
+    save_feature_pt, setup_device, setup_mesh,
 )
 from univst_torch.utils.io import load_video, save_video, seed_everything
 
@@ -33,7 +34,8 @@ def build_sd3_pipeline(args, capture_block=None, num_frames=None):
     from univst_torch.pipelines.sd3 import SD3VideoPipeline
 
     mesh = setup_mesh(args)
-    return SD3VideoPipeline.build(
+    t0 = time.perf_counter()
+    pipe = SD3VideoPipeline.build(
         pretrained_model_path=args.pretrained_model_path,
         variant=args.variant,
         num_frames=args.num_frames if num_frames is None else num_frames,
@@ -41,7 +43,9 @@ def build_sd3_pipeline(args, capture_block=None, num_frames=None):
         capture_block=capture_block,
         seed=args.seed or 0,
         device=setup_device(args.platform) if mesh is None else mesh.device,
-    ).with_mesh(mesh)
+    )
+    report_load(args.pretrained_model_path, t0)
+    return pipe.with_mesh(mesh)
 
 
 def main(args):

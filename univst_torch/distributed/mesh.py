@@ -65,7 +65,8 @@ def make_mesh(n_data: Optional[int] = None, n_tensor: int = 1, group=None,
               device=None) -> Mesh:
     """The ``n_data x n_tensor`` mesh over an initialized process group (the
     default one unless ``group`` is given), each rank on ``device``
-    (default: ``cuda:LOCAL_RANK`` when CUDA is available, else the CPU).
+    (default: ``cuda:LOCAL_RANK``; with no CUDA this raises: the CPU only
+    when asked for, ``device='cpu'``).
     Every rank of the group must call it: it creates the subgroups of both
     axes (``dist.new_group`` is collective)."""
     if not dist.is_initialized():
@@ -80,8 +81,10 @@ def make_mesh(n_data: Optional[int] = None, n_tensor: int = 1, group=None,
         raise ValueError(f"mesh data={n_data},tensor={n_tensor} needs {n_data * n_tensor} "
                          f"ranks; the group has {world}")
     if device is None:
-        device = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-                  if torch.cuda.is_available() else torch.device("cpu"))
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device found; pass device='cpu' to run the "
+                               "ranks on the CPU")
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     key = (n_data, n_tensor, group, str(device))
     if key in _MESHES:  # the subgroups of a mesh are made once per process
         return _MESHES[key]

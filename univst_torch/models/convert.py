@@ -14,12 +14,16 @@ Two directions meet here:
     and loads it strictly, so a missing or unexpected key fails loudly. The
     one exception is AnimateDiff's motion modules, which a 2D ``unet/``
     checkpoint does not carry: :func:`load_motion_module` loads them from
-    their own file.
+    their own file. A folder may be sharded (its ``*.index.json`` maps each
+    key to one of its files, as SD3-medium's ``text_encoder_3`` and
+    SD3.5-large's ``transformer`` ship); ``.safetensors`` files are read by
+    :mod:`univst_torch.utils.safetensors`.
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import os
 from typing import Dict, Mapping, Optional
 
@@ -415,21 +419,62 @@ def to_torch_state_dict(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]
 
 
 def _find_weights(dirpath: str) -> Optional[str]:
-    for pat in ("*.safetensors", "*.bin", "*.pt"):
+    """A module folder's weights: its shard index (``*.index.json``) where
+    it has one, else its first ``*.safetensors``, ``*.bin`` or ``*.pt`` in
+    that order of preference (univst_tpu/pipelines/sd.py:43-44, which knows
+    no index); None when it has none."""
+    for pat in ("*.index.json", "*.safetensors", "*.bin", "*.pt"):
         hits = sorted(glob.glob(os.path.join(dirpath, pat)))
         if hits:
             return hits[0]
     return None
 
 
-def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """A .safetensors / .bin / .pt / .ckpt weights file as a dict of CPU
-    tensors; a pickle that nests its weights under ``state_dict`` (the
-    AnimateDiff motion and LDM checkpoints) gives that dict."""
-    if path.endswith(".safetensors"):
-        from safetensors.torch import load_file
+def _load_sharded(index_path: str) -> Dict[str, torch.Tensor]:
+    """Every shard that a ``*.index.json``'s ``weight_map`` names, merged.
+    Refuses an index that names a key twice or a shard that is missing
+    (before any shard is read), and a shard whose keys are not the ones the
+    index maps to it."""
+    def no_duplicates(pairs):
+        keys = [k for k, _ in pairs]
+        if len(set(keys)) != len(keys):
+            dup = sorted({k for k in keys if keys.count(k) > 1})
+            raise ValueError(f"{index_path}: the index names {dup[:5]} twice")
+        return dict(pairs)
 
-        return dict(load_file(path))
+    with open(index_path) as f:
+        weight_map = json.load(f, object_pairs_hook=no_duplicates).get("weight_map")
+    if not isinstance(weight_map, dict) or not weight_map:
+        raise ValueError(f"{index_path}: no weight_map")
+    folder = os.path.dirname(index_path)
+    shards = sorted(set(weight_map.values()))
+    for shard in shards:
+        if os.path.basename(shard) != shard or not os.path.isfile(os.path.join(folder, shard)):
+            raise FileNotFoundError(f"{index_path}: the index names a shard {shard!r} that "
+                                    f"is not a file of {folder}")
+    out: Dict[str, torch.Tensor] = {}
+    for shard in shards:
+        part = load_state_dict_file(os.path.join(folder, shard))
+        want = {k for k, v in weight_map.items() if v == shard}
+        if set(part) != want:
+            raise ValueError(f"{index_path}: shard {shard} holds keys "
+                             f"{sorted(set(part) - want)[:5]} the index does not map to it "
+                             f"and lacks {sorted(want - set(part))[:5]}")
+        out.update(part)
+    return out
+
+
+def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
+    """A .safetensors / .bin / .pt / .ckpt weights file, or a shard index
+    (``*.index.json``: its shards merged), as a dict of CPU tensors; a
+    pickle that nests its weights under ``state_dict`` (the AnimateDiff
+    motion and LDM checkpoints) gives that dict."""
+    if path.endswith(".index.json"):
+        return _load_sharded(path)
+    if path.endswith(".safetensors"):
+        from univst_torch.utils.safetensors import load_file
+
+        return load_file(path)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return sd.get("state_dict", sd)
 
@@ -469,8 +514,9 @@ def load_pretrained(path: str, unet=None, vae=None, text_encoder=None, transform
     """Load each given module from its diffusers subfolder of ``path``
     (``unet``, ``vae``, ``text_encoder``; SD3: ``transformer``,
     ``text_encoder_2``, ``text_encoder_3``) with :func:`load_strict`
-    (diffusers/transformers layout, as ``scripts/make_synthetic_checkpoints.py``
-    writes it). A module whose folder is missing raises."""
+    (diffusers/transformers layout, as ``univst_torch.tools.
+    make_synthetic_checkpoints`` writes it; a folder may be sharded). A module
+    whose folder is missing raises."""
     for sub, module in (("unet", unet), ("vae", vae), ("text_encoder", text_encoder),
                         ("transformer", transformer), ("text_encoder_2", text_encoder_2),
                         ("text_encoder_3", text_encoder_3)):

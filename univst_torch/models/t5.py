@@ -166,26 +166,37 @@ class T5Encoder(nn.Module):
 
 class T5TokenizerShim:
     """Null-prompt tokenizer ([</s>, pad, ...]); with a checkpoint's
-    ``tokenizer_3`` folder, transformers' T5TokenizerFast; other prompts
-    without one take the byte fallback of ``models/bpe.py`` (valid ids for
-    synthetic weights only)."""
+    ``tokenizer_3`` folder, transformers' T5TokenizerFast, imported at the
+    first non-empty prompt (the SD3 CLIs encode only ``""``, which needs no
+    tokenizer file, so they run where transformers is missing; a non-empty
+    prompt there raises); other prompts without a folder take the
+    byte fallback of ``models/bpe.py`` (valid ids for synthetic weights
+    only)."""
 
     def __init__(self, hf_dir: Optional[str] = None, max_len: int = 256):
         self.max_len = max_len
+        self.hf_dir = hf_dir
         self._tok = None
-        if hf_dir is not None:
-            from transformers import T5TokenizerFast
 
-            self._tok = T5TokenizerFast.from_pretrained(hf_dir)
+    def _hf(self):
+        if self._tok is None:
+            try:
+                from transformers import T5TokenizerFast
+            except ImportError as e:
+                raise ImportError(
+                    f"a non-empty T5 prompt needs the transformers package to read the "
+                    f"tokenizer in {self.hf_dir} ({e})") from e
+            self._tok = T5TokenizerFast.from_pretrained(self.hf_dir)
+        return self._tok
 
     def __call__(self, prompts) -> np.ndarray:
         if isinstance(prompts, str):
             prompts = [prompts]
-        if self._tok is not None:
-            out = self._tok(prompts, padding="max_length", max_length=self.max_len,
-                            truncation=True, return_tensors="np")
+        if self.hf_dir is not None and any(prompts):
+            out = self._hf()(prompts, padding="max_length", max_length=self.max_len,
+                             truncation=True, return_tensors="np")
             return out["input_ids"].astype(np.int32)
-        if any(p.strip() for p in prompts):
+        if self.hf_dir is None and any(p.strip() for p in prompts):
             from univst_torch.models.bpe import t5_byte_fallback_ids
 
             return t5_byte_fallback_ids(prompts, self.max_len, eos_id=T5_EOS, pad_id=T5_PAD)

@@ -27,6 +27,7 @@ TOOLS = {
     "bench_anatomy": "scripts/bench_anatomy.py",
     "bench_sd3_anatomy": "scripts/bench_sd3_anatomy.py",
     "compare_outputs": "scripts/compare_outputs.py",
+    "make_synthetic_checkpoints": "scripts/make_synthetic_checkpoints.py",
     "start_sd.sh": "scripts/start_sd.sh",
     "start_animatediff.sh": "scripts/start_animatediff.sh",
     "start_sd3.sh": "scripts/start_sd3.sh",
