@@ -1,39 +1,18 @@
 """The port's timing and tracing utilities (``univst_torch.utils.profiling``)
-on the CPU: ``PhaseTimer`` reports the JAX package's keys, ``device_trace``
-with no directory does nothing, ``device_time_split`` reads a CPU-only trace
-(no device time: it says so and reports no idle share) and sorts kernel
-names into their categories, and ``sync`` returns host copies. What the
-split reads on the card is measured by ``chip_smoke.py``'s ``[profile]``
-phase."""
+on the CPU: ``device_trace`` with no directory does nothing,
+``device_time_split`` reads a CPU-only trace (no device time: it says so
+and reports no idle share) and sorts kernel names into their categories,
+and ``sync`` returns host copies. What the split reads on the card is
+measured by ``chip_smoke.py``'s ``[profile]`` phase; the span recorder's
+tests are in ``test_torch_spans.py``."""
 
-import json
 import os
 from types import SimpleNamespace as NS
 
 import pytest
 import torch
 
-from univst_tpu.utils import profiling as jprof
 from univst_torch.utils import profiling as tprof
-
-
-def _report(timer):
-    with timer.phase("a"):
-        pass
-    with timer.phase("b"):
-        pass
-    with timer.phase("a"):
-        pass
-    return json.loads(timer.report())
-
-
-def test_phase_timer_reports_the_jax_keys():
-    mine, theirs = _report(tprof.PhaseTimer()), _report(jprof.PhaseTimer())
-    assert mine.keys() == theirs.keys() == {"a", "b"}
-    for name in mine:
-        assert mine[name].keys() == theirs[name].keys() == {"total_s", "calls"}
-        assert mine[name]["calls"] == theirs[name]["calls"]
-    assert mine["a"]["calls"] == 2
 
 
 def test_device_trace_without_a_directory_does_nothing(tmp_path, monkeypatch):

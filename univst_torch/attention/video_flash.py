@@ -38,7 +38,10 @@ Each wrapper calls a PyTorch custom op (``univst::video_flash_attention``,
 or the launch. The op is one unit to PyTorch's dispatcher: the profiler
 names it, and ``torch.utils.flop_counter.FlopCounterMode`` counts it with
 the formula registered here (:func:`work`'s FLOPs) instead of the plain
-version's matmuls, which run duplicate slots that the kernels skip.
+version's matmuls, which run duplicate slots that the kernels skip. With the
+span recorder's ranges on (``utils/profiling.py``), each wrapper call runs
+inside a profiler range that names the kernel, the index set, the q and k
+shapes and the context length (``profiling.vfa_range``).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from univst_torch.attention.ops import resolve_frame_indices
+from univst_torch.utils.profiling import SPANS, vfa_range
 
 _KERNEL = "video_flash_attention"
 _fns = {}
@@ -303,9 +307,13 @@ def video_flash_attention(q, k, v, frame_indices: Sequence, sm_scale: Optional[f
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"video_flash_attention runs on CPU or CUDA, not {q.device}")
     sm_scale, ctx_valid = _op_args(sm_scale, ctx_valid)
-    return _video_flash_attention_op(q, k, v, _encode_indices(frame_indices), sm_scale, ctx_k,
-                                     ctx_v, ctx_valid,
-                                     None if tables is None else encode_tables(*tables))
+    args = (q, k, v, _encode_indices(frame_indices), sm_scale, ctx_k, ctx_v, ctx_valid,
+            None if tables is None else encode_tables(*tables))
+    if SPANS.ranges:
+        with torch.profiler.record_function(vfa_range("k1", q.shape, k.shape, frame_indices,
+                                                      ctx_valid)):
+            return _video_flash_attention_op(*args)
+    return _video_flash_attention_op(*args)
 
 
 video_flash_attention.launches = 0
@@ -379,9 +387,13 @@ def video_flash_attention_tokens(q, k, v, frame_indices: Sequence,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"video_flash_attention_tokens runs on CPU or CUDA, not {q.device}")
     sm_scale, ctx_valid = _op_args(sm_scale, ctx_valid)
-    return _video_flash_attention_tokens_op(q, k, v, _encode_indices(frame_indices), sm_scale,
-                                            ctx_k, ctx_v, ctx_valid,
-                                            None if tables is None else encode_tables(*tables))
+    args = (q, k, v, _encode_indices(frame_indices), sm_scale, ctx_k, ctx_v, ctx_valid,
+            None if tables is None else encode_tables(*tables))
+    if SPANS.ranges:
+        with torch.profiler.record_function(vfa_range("k2", q.shape, k.shape, frame_indices,
+                                                      ctx_valid)):
+            return _video_flash_attention_tokens_op(*args)
+    return _video_flash_attention_tokens_op(*args)
 
 
 video_flash_attention_tokens.launches = 0

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from univst_torch.core.adain import latent_adain, latent_adain_sd3
 from univst_torch.core.config import StyleTransferConfig
 from univst_torch.core.scheduler import DDIMSchedule, FlowMatchSchedule
+from univst_torch.utils.profiling import NO_SPAN, SPANS
 
 
 def _resize_mask(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -79,30 +80,31 @@ def style_transfer_ddim_steps(
     m = None if mask is None else _resize_mask(mask, h, w).to(latents.dtype)
     for j, (i, t) in enumerate(zip(steps, ts)):
         i, t = int(i), int(t)
-        cnt_t = content_chunk[j].to(latents.dtype)
-        sty_t = style_chunk[j].to(latents.dtype)
-        # localized latent blending, i <= 0.9 N (stable_diffusion.py:687-692)
-        if m is not None and _le(i, cfg.blend_hi * n):
-            latents = (1.0 - m) * latents + m * cnt_t
-        # AdaIN re-anchor, 0.8 N < i <= 0.9 N (stable_diffusion.py:694-702)
-        if not _le(i, cfg.adain_lo * n) and _le(i, cfg.adain_hi * n):
-            anchored = latent_adain(latents, sty_t, shard)
-            if m is not None:
-                anchored = (1.0 - m) * anchored + m * cnt_t
-            latents = anchored.to(latents.dtype)
+        with SPANS.span("step", i=i) if SPANS.on else NO_SPAN:
+            cnt_t = content_chunk[j].to(latents.dtype)
+            sty_t = style_chunk[j].to(latents.dtype)
+            # localized latent blending, i <= 0.9 N (stable_diffusion.py:687-692)
+            if m is not None and _le(i, cfg.blend_hi * n):
+                latents = (1.0 - m) * latents + m * cnt_t
+            # AdaIN re-anchor, 0.8 N < i <= 0.9 N (stable_diffusion.py:694-702)
+            if not _le(i, cfg.adain_lo * n) and _le(i, cfg.adain_hi * n):
+                anchored = latent_adain(latents, sty_t, shard)
+                if m is not None:
+                    anchored = (1.0 - m) * anchored + m * cnt_t
+                latents = anchored.to(latents.dtype)
 
-        if solo:
-            eps = denoise3(latents, t, i)
-        elif capture:
-            eps = denoise3(torch.cat([cnt_t, latents]), t, i, sty_t)[f:]
-        elif style_kv is None:
-            eps = denoise3(torch.cat([cnt_t, sty_t, latents]), t, i)[2 * f:]
-        else:
-            kv_t = tuple((k[j], v[j]) for k, v in style_kv)
-            eps = denoise3(torch.cat([cnt_t, latents]), t, i, kv_t)[f:]
-        if eps_hook is not None:
-            eps = eps_hook(eps, t, i, latents)
-        latents = schedule.step(eps, t, latents, n)
+            if solo:
+                eps = denoise3(latents, t, i)
+            elif capture:
+                eps = denoise3(torch.cat([cnt_t, latents]), t, i, sty_t)[f:]
+            elif style_kv is None:
+                eps = denoise3(torch.cat([cnt_t, sty_t, latents]), t, i)[2 * f:]
+            else:
+                kv_t = tuple((k[j], v[j]) for k, v in style_kv)
+                eps = denoise3(torch.cat([cnt_t, latents]), t, i, kv_t)[f:]
+            if eps_hook is not None:
+                eps = eps_hook(eps, t, i, latents)
+            latents = schedule.step(eps, t, latents, n)
     return latents
 
 
@@ -146,28 +148,29 @@ def style_transfer_rf_steps(
     scale = np.float32(schedule.cfg.num_train_timesteps)
     for j, (i, sc, sn, eta) in enumerate(zip(steps, s_curr, s_next, etas)):
         i, sc, sn = int(i), np.float32(sc), np.float32(sn)
-        cnt_t = content_chunk[j].to(latents.dtype)
-        sty_t = style_chunk[j].to(latents.dtype)
-        if m is not None and _le(i, cfg.blend_hi * n):
-            latents = (1.0 - m) * latents + m * cnt_t
-        # SD3's re-anchor window is closed at both ends (custom_pipeline.py:295)
-        if _le(cfg.adain_lo * n, i) and _le(i, cfg.adain_hi * n):
-            anchored = latent_adain_sd3(latents, sty_t)
-            if m is not None:
-                anchored = (1.0 - m) * anchored + m * cnt_t
-            latents = anchored.to(latents.dtype)
+        with SPANS.span("step", i=i) if SPANS.on else NO_SPAN:
+            cnt_t = content_chunk[j].to(latents.dtype)
+            sty_t = style_chunk[j].to(latents.dtype)
+            if m is not None and _le(i, cfg.blend_hi * n):
+                latents = (1.0 - m) * latents + m * cnt_t
+            # SD3's re-anchor window is closed at both ends (custom_pipeline.py:295)
+            if _le(cfg.adain_lo * n, i) and _le(i, cfg.adain_hi * n):
+                anchored = latent_adain_sd3(latents, sty_t)
+                if m is not None:
+                    anchored = (1.0 - m) * anchored + m * cnt_t
+                latents = anchored.to(latents.dtype)
 
-        t = float(sc * scale)
-        if solo:
-            v = denoise3(latents, t, i)
-        elif singleton:
-            v = denoise3(torch.cat([cnt_t, latents]), t, i, sty_t)[f:]
-        else:
-            v = denoise3(torch.cat([cnt_t, sty_t, latents]), t, i)[2 * f:]
-        x32 = latents.float()
-        v = v.float()
-        v = v + float(np.float32(eta)) * (-(target - x32) / float(sc) - v)
-        latents = (x32 + float(sn - sc) * v).to(latents.dtype)
+            t = float(sc * scale)
+            if solo:
+                v = denoise3(latents, t, i)
+            elif singleton:
+                v = denoise3(torch.cat([cnt_t, latents]), t, i, sty_t)[f:]
+            else:
+                v = denoise3(torch.cat([cnt_t, sty_t, latents]), t, i)[2 * f:]
+            x32 = latents.float()
+            v = v.float()
+            v = v + float(np.float32(eta)) * (-(target - x32) / float(sc) - v)
+            latents = (x32 + float(sn - sc) * v).to(latents.dtype)
     return latents
 
 

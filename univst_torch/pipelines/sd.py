@@ -43,6 +43,7 @@ from univst_torch.models.layers import StyleCtx, VideoCtx
 from univst_torch.models.unet_sd import UNetPseudo3D, UNetSDConfig, extract_pnp_kv
 from univst_torch.models.vae import AutoencoderKL, VAEConfig, sample_latent
 from univst_torch.pipelines.segments import phase_segments
+from univst_torch.utils.profiling import NO_SPAN, SPANS
 
 
 def resolve_device(device=None) -> torch.device:
@@ -300,12 +301,13 @@ class SDVideoPipeline(FrameParallel):
         stable_diffusion.py:369-385): each chunk's temporal decoder sees its
         own frame count. Returns one uint8 tensor per chunk."""
         n = latents.shape[0]
-        if chunk >= n:
-            return [self.decode_latents_uint8(latents)]
-        if n % chunk:
+        if chunk < n and n % chunk:
             raise ValueError(f"chunk {chunk} must divide the frame count {n}")
-        return [torch.round(self._decode(latents[s:s + chunk], chunk) * 255.0).to(torch.uint8)
-                for s in range(0, n, chunk)]
+        with SPANS.span("decode", device=self.device) if SPANS.on else NO_SPAN:
+            if chunk >= n:
+                return [self.decode_latents_uint8(latents)]
+            return [torch.round(self._decode(latents[s:s + chunk], chunk) * 255.0)
+                    .to(torch.uint8) for s in range(0, n, chunk)]
 
     # -- denoiser closures ----------------------------------------------------
 
@@ -431,34 +433,40 @@ class SDVideoPipeline(FrameParallel):
         k1 = phase2[0][0] if phase2 else n
         latents = init_latents.to(dev).float()
         hook = self._smooth_hook(cfg, mask)
-        if self.style_singleton:
-            style_traj_rev = style_traj_rev[:, :1]
-            if phase1:
-                style_kv_all = self._style_prepass(style_traj_rev, ts[:k1], context3, k1)
-            for s0, c in phase1:
-                latents = self._stylize_chunk_singleton(content_traj_rev, style_traj_rev,
-                                                        style_kv_all, latents, ts, s0, context3,
-                                                        mask, cfg, scfg, c, hook)
-        else:
-            # the full per-frame style latents: the AdaIN re-anchor's
-            # statistics span frames (latent_adain dims [0, 3, 4])
-            if style_traj_rev.shape[1] == 1 and self.num_frames > 1:
-                style_traj_rev = style_traj_rev.expand(-1, content_traj_rev.shape[1], -1, -1, -1)
-            pc = self.style_prepass_chunk
-            for s0, c in phase1:
-                if pc:
-                    for t0 in range(s0, s0 + c, pc):
-                        latents = self._stylize_chunk_prepass(
-                            content_traj_rev, style_traj_rev, latents, ts, t0, context3, mask,
-                            cfg, scfg, min(pc, s0 + c - t0), hook)
-                else:
-                    latents = self._stylize_chunk_capture(content_traj_rev, style_traj_rev,
-                                                          latents, ts, s0, context3, mask, cfg,
-                                                          scfg, c, hook)
-        for s0, c in phase2:
-            latents = self._stylize_chunk_solo(content_traj_rev, style_traj_rev, latents, ts,
-                                               s0, context3, mask, cfg, c)
-        return self._gather(latents, shard)
+        with SPANS.span("stylize", device=dev) if SPANS.on else NO_SPAN:
+            if self.style_singleton:
+                style_traj_rev = style_traj_rev[:, :1]
+                if phase1:
+                    with SPANS.span("prepass") if SPANS.on else NO_SPAN:
+                        style_kv_all = self._style_prepass(style_traj_rev, ts[:k1], context3, k1)
+                for s0, c in phase1:
+                    with SPANS.span("phase1", start=s0, steps=c) if SPANS.on else NO_SPAN:
+                        latents = self._stylize_chunk_singleton(
+                            content_traj_rev, style_traj_rev, style_kv_all, latents, ts, s0,
+                            context3, mask, cfg, scfg, c, hook)
+            else:
+                # the full per-frame style latents: the AdaIN re-anchor's
+                # statistics span frames (latent_adain dims [0, 3, 4])
+                if style_traj_rev.shape[1] == 1 and self.num_frames > 1:
+                    style_traj_rev = style_traj_rev.expand(-1, content_traj_rev.shape[1], -1, -1,
+                                                           -1)
+                pc = self.style_prepass_chunk
+                for s0, c in phase1:
+                    with SPANS.span("phase1", start=s0, steps=c) if SPANS.on else NO_SPAN:
+                        if pc:
+                            for t0 in range(s0, s0 + c, pc):
+                                latents = self._stylize_chunk_prepass(
+                                    content_traj_rev, style_traj_rev, latents, ts, t0, context3,
+                                    mask, cfg, scfg, min(pc, s0 + c - t0), hook)
+                        else:
+                            latents = self._stylize_chunk_capture(
+                                content_traj_rev, style_traj_rev, latents, ts, s0, context3,
+                                mask, cfg, scfg, c, hook)
+            for s0, c in phase2:
+                with SPANS.span("phase2", start=s0, steps=c) if SPANS.on else NO_SPAN:
+                    latents = self._stylize_chunk_solo(content_traj_rev, style_traj_rev, latents,
+                                                       ts, s0, context3, mask, cfg, c)
+            return self._gather(latents, shard)
 
     def _style_prepass(self, style_traj_rev, ts, context3, k1: int):
         """The style branch's projected PnP K/V for all k1 steps in one

@@ -58,6 +58,7 @@ from univst_torch.pipelines.sd import (
     FrameParallel, random_init_, resolve_device, set_precision,
 )
 from univst_torch.pipelines.segments import phase_segments
+from univst_torch.utils.profiling import NO_SPAN, SPANS
 
 
 @contextlib.contextmanager
@@ -256,7 +257,8 @@ class SD3VideoPipeline(FrameParallel):
         return self._gather(torch.clamp(px.float() / 2.0 + 0.5, 0.0, 1.0), shard)
 
     def decode_latents_uint8(self, latents, chunk: Optional[int] = None):
-        return torch.round(self.decode_latents(latents, chunk) * 255.0).to(torch.uint8)
+        with SPANS.span("decode", device=self.device) if SPANS.on else NO_SPAN:
+            return torch.round(self.decode_latents(latents, chunk) * 255.0).to(torch.uint8)
 
     # -- denoiser ---------------------------------------------------------------
 
@@ -365,16 +367,15 @@ class SD3VideoPipeline(FrameParallel):
         phase1, phase2 = phase_segments(n, style_cfg.window_end())
         seg = dict(content=content, style=style, sigmas=sigmas, etas=etas, img=img, mask=mask,
                    cfg=cfg)
-        for s0, c in phase1:
-            if self.style_singleton:
-                latents = self._stylize2_segment(latents, s0, c, context3, pooled3, style_cfg,
-                                                 **seg)
-            else:
-                latents = self._stylize3_segment(latents, s0, c, context3, pooled3, style_cfg,
-                                                 **seg)
-        for s0, c in phase2:
-            latents = self._stylize1_segment(latents, s0, c, context3, pooled3, **seg)
-        return self._gather(latents, shard)
+        segment = self._stylize2_segment if self.style_singleton else self._stylize3_segment
+        with SPANS.span("stylize", device=dev) if SPANS.on else NO_SPAN:
+            for s0, c in phase1:
+                with SPANS.span("phase1", start=s0, steps=c) if SPANS.on else NO_SPAN:
+                    latents = segment(latents, s0, c, context3, pooled3, style_cfg, **seg)
+            for s0, c in phase2:
+                with SPANS.span("phase2", start=s0, steps=c) if SPANS.on else NO_SPAN:
+                    latents = self._stylize1_segment(latents, s0, c, context3, pooled3, **seg)
+            return self._gather(latents, shard)
 
     def _steps(self, denoise, latents, s0, c, content, style, sigmas, etas, img, mask, cfg,
                **kw):

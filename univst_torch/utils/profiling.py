@@ -1,17 +1,19 @@
-"""Timing and tracing utilities — port of ``univst_tpu/utils/profiling.py``:
-per-phase wall timers, a ``torch.profiler`` trace scope, and the split of a
-trace's device time by kind of kernel.
+"""Timing and tracing utilities, after ``univst_tpu/utils/profiling.py``: the
+program's span recorder (:data:`SPANS`: the pipelines' stylization and
+decode, its pre-pass, phases and steps), a ``torch.profiler`` trace scope
+that carries those spans as ranges, and the split of a trace's device time
+by kind of kernel.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
+import itertools
 import os
 import re
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -31,42 +33,175 @@ def _cuda_in_use() -> bool:
     return torch.cuda.is_available() and torch.cuda.is_initialized()
 
 
-class PhaseTimer:
-    """Accumulates wall-time per named phase; prints a one-line JSON report.
-    A phase ends with ``torch.cuda.synchronize()`` once the process uses the
-    card, so its time holds the device work it queued."""
+class Span(NamedTuple):
+    """A finished span of :class:`SpanRecorder`. ``job`` is the id of the
+    root span it ran under, ``parent`` the id of the span that enclosed it
+    (None for a root). ``host_*_ns`` are ``time.perf_counter_ns`` at entry
+    and exit. ``device_ms`` is the time on the card's stream between two
+    CUDA events recorded at entry and exit: only for :data:`DEVICE_TIMED`
+    spans of a job on a CUDA device, else None."""
+
+    name: str
+    id: int
+    job: int
+    parent: Optional[int]
+    attrs: dict
+    host_start_ns: int
+    host_end_ns: int
+    device_ms: Optional[float]
+
+
+# spans that open a job (allocate its id); any other span opened outside one
+# records nothing (see SpanRecorder)
+ROOTS = ("stylize", "decode")
+# spans that also record a CUDA event at entry and exit
+DEVICE_TIMED = ("prepass", "phase1", "phase2", "step")
+# the prefix of the profiler ranges the spans open in ranges mode, and the
+# range of one video flash attention call (:func:`vfa_range`)
+RANGE_PREFIX = "univst::"
+VFA_RANGE = RANGE_PREFIX + "vfa "
+
+
+class _OpenSpan:
+    """One span site's span while it is open (see :meth:`SpanRecorder.span`)."""
+
+    __slots__ = ("rec", "name", "attrs", "device", "rooted", "id", "job", "parent", "t0",
+                 "events", "rf")
+
+    def __init__(self, rec: "SpanRecorder", name: str, device, attrs: dict):
+        self.rec, self.name, self.device, self.attrs = rec, name, device, attrs
+
+    def __enter__(self):
+        rec = self.rec
+        stack = rec._open
+        self.rooted = bool(stack) or self.name in ROOTS
+        self.rf = self.events = self.t0 = None
+        if rec.ranges:
+            self.rf = torch.profiler.record_function(RANGE_PREFIX + self.name)
+            self.rf.__enter__()
+        if not self.rooted:
+            return self
+        root = stack[0] if stack else self
+        if rec.events and (root is self or root.t0 is not None):
+            self.id = next(rec._ids)
+            self.job = root.id
+            self.parent = stack[-1].id if stack else None
+            self.device = root.device
+            if self.name in DEVICE_TIMED and self.device is not None \
+                    and torch.device(self.device).type == "cuda":
+                self.events = (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
+                self.events[0].record(torch.cuda.current_stream(self.device))
+            self.t0 = time.perf_counter_ns()
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if self.rooted:
+            rec._open.pop()
+        if self.t0 is not None:
+            t1 = time.perf_counter_ns()
+            if self.events is not None:
+                self.events[1].record(torch.cuda.current_stream(self.device))
+            rec._done.append((self, t1))
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        return False
+
+
+class SpanRecorder:
+    """The program's span recorder, one a process (:data:`SPANS`), off by
+    default; :func:`spans` turns it on for a block.
+
+    A span site reads ``with SPANS.span(name, ...) if SPANS.on else NO_SPAN:``,
+    so with the recorder off it costs one attribute check: nothing is
+    allocated, no profiler range opened, no CUDA event recorded. On:
+
+    * events: each span keeps its name, job, parent, attributes and host
+      ``perf_counter_ns`` at entry and exit, and a :data:`DEVICE_TIMED` span
+      of a job on a CUDA device records a CUDA event on the current stream
+      at each end. :meth:`take` returns the finished spans.
+    * ranges: each span also opens a ``torch.profiler.record_function``
+      named ``univst::<name>``, so a profiled run holds the spans on the
+      profiler's clock beside the device operations; the video flash
+      attention wrappers open a range of their own per call
+      (``attention/video_flash.py``).
+
+    A root span (:data:`ROOTS`) opens a job and takes the job's ``device``.
+    Outside a root a span records nothing; in ranges mode it still opens its
+    range (the tools trace a pipeline's pieces, such as one step, outside
+    ``stylize_latents``). No span synchronises."""
 
     def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
+        self.on = False  # events or ranges: the one flag a span site checks
+        self.events = False
+        self.ranges = False
+        self._open: List[_OpenSpan] = []
+        self._done: list = []
+        self._ids = itertools.count()
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if _cuda_in_use():
-                torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+    def span(self, name: str, device=None, **attrs) -> _OpenSpan:
+        """A span named ``name`` with ``attrs`` (``device``: a root's device)."""
+        return _OpenSpan(self, name, device, attrs)
 
-    def report(self) -> str:
-        return json.dumps(
-            {
-                k: {"total_s": round(v, 3), "calls": self.counts[k]}
-                for k, v in sorted(self.totals.items(), key=lambda kv: -kv[1])
-            }
-        )
+    def take(self) -> List[Span]:
+        """The spans finished since the last call, in the order they ended,
+        and forgets them. Reads the CUDA events' times: the caller
+        synchronises the card first (an event not yet reached raises)."""
+        done, self._done = self._done, []
+        out = []
+        for s, t1 in done:
+            ms = None if s.events is None else s.events[0].elapsed_time(s.events[1])
+            out.append(Span(s.name, s.id, s.job, s.parent, s.attrs, s.t0, t1, ms))
+        return out
+
+
+SPANS = SpanRecorder()
+NO_SPAN = contextlib.nullcontext()
+
+
+def vfa_range(which: str, q_shape, k_shape, frame_indices, ctx_valid) -> str:
+    """The profiler range of one video flash attention call in ranges mode:
+    ``univst::vfa <k1|k2>|<index set>|<q shape>|<k shape>|<ctx_valid>``, each
+    list comma-separated, ``ctx_valid`` 0 without context."""
+    def dims(shape):
+        return ",".join(str(int(d)) for d in shape)
+
+    return VFA_RANGE + "|".join([which, ",".join(str(i) for i in frame_indices), dims(q_shape),
+                                 dims(k_shape), str(int(ctx_valid or 0))])
+
+
+def _is_range(name: str) -> bool:
+    """A profiler range of the program's own: a norm range or a span's."""
+    return name in _RANGES or name.startswith(VFA_RANGE)
+
+
+_RANGES = {NORM_SCOPE} | {RANGE_PREFIX + n for n in ROOTS + DEVICE_TIMED}
+
+
+@contextlib.contextmanager
+def spans(events: bool = True, ranges: bool = False):
+    """Turn :data:`SPANS` to ``events`` and ``ranges`` for the block, then back
+    to what it was."""
+    before = SPANS.events, SPANS.ranges
+    SPANS.events, SPANS.ranges = events, ranges
+    SPANS.on = events or ranges
+    try:
+        yield SPANS
+    finally:
+        SPANS.events, SPANS.ranges = before
+        SPANS.on = any(before)
 
 
 @contextlib.contextmanager
 def device_trace(log_dir: Optional[str] = None):
     """``torch.profiler`` scope over the CPU and, where there is one, the
-    card; yields the profiler (for :func:`device_time_split`) and writes its
-    Chrome trace to ``log_dir/trace.json.gz``. No-op, yielding None, when
-    ``log_dir`` is None."""
+    card, with the span recorder's ranges on (``univst::<span>`` ranges, and
+    one per video flash attention call); yields the profiler (for
+    :func:`device_time_split`) and writes its Chrome trace to
+    ``log_dir/trace.json.gz``. No-op, yielding None, when ``log_dir`` is
+    None."""
     if log_dir is None:
         yield None
         return
@@ -75,7 +210,7 @@ def device_trace(log_dir: Optional[str] = None):
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    with spans(events=SPANS.events, ranges=True), profile(activities=acts) as prof:
         yield prof
         if _cuda_in_use():
             torch.cuda.synchronize()
@@ -160,9 +295,10 @@ def _is_device(evt) -> bool:
 
 def _is_kernel(evt) -> bool:
     """A device event that is a kernel, memset or copy: not the device-side
-    span the profiler records for a user range (:data:`NORM_SCOPE`)."""
+    span the profiler records for a user range (the program's norm and span
+    ranges)."""
     name = getattr(evt, "key", None) or evt.name
-    return _is_device(evt) and name != NORM_SCOPE and not getattr(evt, "is_user_annotation",
+    return _is_device(evt) and not _is_range(name) and not getattr(evt, "is_user_annotation",
                                                                    False)
 
 
@@ -203,7 +339,7 @@ def device_time_split(prof) -> dict:
     ops = []
     for e in prof.key_averages():
         if not _is_kernel(e):
-            if not _is_device(e) and e.self_device_time_total > 0 and e.key != NORM_SCOPE:
+            if not _is_device(e) and e.self_device_time_total > 0 and not _is_range(e.key):
                 ops.append((e.self_device_time_total / 1e3, e.key, int(e.count)))
             continue
         us = float(e.self_device_time_total)
