@@ -26,15 +26,21 @@ none catches its own failure:
    each term on a ``[bound]`` line). K1 is the head-major video flash attention of the SD UNet (SD-1.5:
    8 heads of 40 and 80; SD-2.1: 5 and 10 heads of 64, each row with its
    planted fault), K2 the token-major one of the SD3 MMDiT (24 heads; 38
-   for SD3.5-large, and a ``tensor=4`` rank's 10 or 9 of them). Then
-   the host's cost of one wrapper call against the bare launch
-   (``[dispatch]``).
+   for SD3.5-large, and a ``tensor=4`` rank's 10 or 9 of them). The
+   GroupNorm(+SiLU) kernel (``univst_torch/csrc/group_norm.cu``) at the
+   SD-1.5 UNet's and the SVD and SD3 decoders' shapes, channels-last, held
+   against a float64 chain at the card tests' bar (no further from it than
+   1.05x the eager bf16 chain), with statistics over one frame planted;
+   its bound is bytes (x read once, y written once) and its yardstick
+   ``F.group_norm``. Then the host's cost of one wrapper call against the
+   bare launch, K1's and the GroupNorm's (``[dispatch]``).
 4. SD-1.5 path: ``SDVideoPipeline`` (SD-1.5 widths, 512 px, 16 frames,
    bf16, seeded random weights) through content inversion with feature
    capture, single-frame style inversion, mask propagation, stylization
    (style pre-pass, injected 2-branch phase, stylized-only phase) and the
    chunked temporal-VAE decode, plus the inversion -> reconstruction round
-   trip. K1 must launch 10 times per 16-frame UNet forward, K2 never.
+   trip. K1 must launch 10 times per 16-frame UNet forward, K2 never;
+   every GroupNorm call runs the kernel (none takes the eager chain).
    Then ``[bench]``: the headline bench's own summary
    (``univst_torch.bench.summarize``, ``headline``) of that run: its
    stylize + decode and inversion seconds, its round trip's latent PSNR and
@@ -210,7 +216,11 @@ a kernel's ``launches`` in the JSON line is the sum over its paths, each
 path's own count under ``launches_by_path`` (K1: the SD, SD-2.1, bench,
 SD-fallback, weights_day, smoother, profile, stages, anatomy, mesh and
 mesh_smooth paths; K2: SD3-medium, its anatomy's segments and forwards,
-SD3.5-medium, SD3.5-large, profile, mesh, mesh_sd3 and mesh_sd3_tp). The
+SD3.5-medium, SD3.5-large, profile, mesh, mesh_sd3 and mesh_sd3_tp; the
+GroupNorm kernel: all of those and AnimateDiff, with ``eager_cuda_by_path``,
+the CUDA GroupNorm calls that took the eager chain: the frame-sharded
+frame-spanning norms and the fp32 runs; 61 kernel calls and none eager a
+16-frame SD-1.5 forward in weights_day and the profile). The
 last line is ``{"ok": true, "device": {...}}``; the lines before it hold
 the per-kernel JSON and the card's name and power limit. Any failed check
 exits non-zero. ``--steps``
@@ -249,6 +259,13 @@ FMA_OPS_PER_EXP = 6  # the kernel's cubic 2^x (ex2_fma): 3 adds to round, 3 FMAs
 TPU_KERNEL = "univst_tpu/attention/pallas_attention.py:193"
 TPU_KERNEL_FOLDED = "univst_tpu/attention/pallas_attention.py:546"
 SOURCE = "univst_torch/csrc/video_flash_attention.cu"
+GN_SOURCE = "univst_torch/csrc/group_norm.cu"
+GN_REPLACES = "none: the JAX package leaves GroupNorm to XLA"
+# what each path counts (zeroed just before it, read just after): K1's and
+# K2's launches, the GroupNorm kernel's, and the CUDA GroupNorm calls that
+# took the eager chain
+COUNTERS = ("video_flash_attention", "video_flash_attention_tokens", "group_norm",
+            "group_norm_eager_cuda")
 
 
 def _sync():
@@ -484,6 +501,125 @@ def _vfa_tokens_case(b, f, h, lq, l, dh, idx, dtype, lc=None, reps=3, plant=Fals
     return case
 
 
+GN_GROUPS, GN_EPS = 32, 1e-5
+
+
+def _gn_bar(got, eager, ref) -> float:
+    """The GroupNorm kernel's bar (``tests/test_torch_group_norm_cuda.py``'s):
+    its largest and its RMS absolute error against the float64 chain ``ref``
+    over 1.05x the eager bf16 chain's; <= 1 passes."""
+    def errs(y):
+        d = (y.double() - ref).abs()
+        return d.max().item(), d.square().mean().sqrt().item()
+
+    (k_max, k_rms), (e_max, e_rms) = errs(got), errs(eager)
+    return max(k_max / (1.05 * e_max), k_rms / (1.05 * e_rms))
+
+
+def _gn_case(n, c, h, w, frames, silu, plant=False, fp32_params=False, reps=20):
+    """The GroupNorm kernel (``models/group_norm.py::group_norm_cuda``) on
+    channels-last bf16 ``x [n, c, h, w]``, statistics over ``frames`` frames,
+    against a float64 ``group_norm_plain`` (then a float64 SiLU) at the bar
+    :func:`_gn_bar`; inputs with a spread from 1e-3 to 10 for each video's
+    group and an offset of up to 5 spreads for each frame's group. With
+    ``plant``, the kernel run with statistics over one frame must fail the
+    bar. Times: the kernel, the eager chain (``plain_ms``) and
+    ``F.group_norm`` (``library_ms``: per frame, a yardstick the port never
+    calls); the bound: x read once and y written once, 4 bytes an element,
+    at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from univst_torch.models.group_norm import group_norm_cuda, group_norm_plain
+
+    g = GN_GROUPS
+    gen = torch.Generator(device="cuda").manual_seed(n * 7 + c + h * w)
+    scale = 10.0 ** (4.0 * torch.rand(n // frames, 1, g, 1, 1, generator=gen,
+                                      device="cuda") - 3.0)
+    offset = scale * (10.0 * torch.rand(n // frames, frames, g, 1, 1, generator=gen,
+                                        device="cuda") - 5.0)
+    x = (torch.randn(n // frames, frames, g, c // g, h * w, generator=gen, device="cuda")
+         * scale + offset).reshape(n, c, h, w).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    pdt = torch.float32 if fp32_params else torch.bfloat16
+    wt = (1.0 + 0.5 * torch.randn(c, generator=gen, device="cuda")).to(pdt)
+    bs = (0.5 * torch.randn(c, generator=gen, device="cuda")).to(pdt)
+
+    def kernel(f=frames):
+        return group_norm_cuda(x, wt, bs, g, f, GN_EPS, silu)
+
+    def eager():
+        out = group_norm_plain(x, wt, bs, g, GN_EPS, frames)
+        return F.silu(out) if silu else out
+
+    ref = group_norm_plain(x.double(), wt, bs, g, GN_EPS, frames)
+    ref = ref * torch.sigmoid(ref) if silu else ref
+    got = kernel()
+    if not torch.equal(got, kernel()):
+        raise AssertionError(f"group_norm {list(x.shape)}: two calls differ")
+    err = (got.double() - ref).abs().max().item()
+    ratio = _gn_bar(got, eager(), ref)
+    if not ratio <= 1.0:
+        raise AssertionError(f"group_norm {list(x.shape)} F={frames}: kernel at {ratio:.3g}x "
+                             f"the eager chain's error x 1.05 (max abs err {err})")
+    planted = None
+    if plant:
+        planted = _gn_bar(kernel(1), eager(), ref)
+        if not planted > 1.0:
+            raise AssertionError(f"the bar passed a GroupNorm with statistics over one frame "
+                                 f"instead of {frames} ({planted:.3g}x)")
+        print(f"[kernel] planted fault (GroupNorm statistics over one frame) rejected at "
+              f"{planted:.3g}x the bar", flush=True)
+    del ref
+    ms = _time_ms(kernel, reps)
+    plain_ms = _time_ms(eager, reps)
+    wl, bl = wt.to(x.dtype), bs.to(x.dtype)  # F.group_norm takes x's dtype
+    library_ms = _time_ms(lambda: F.group_norm(x, g, wl, bl, GN_EPS), reps)
+    bound_ms = 4 * x.numel() / PEAK_BYTES * 1e3
+    case = dict(shape=[n, c, h, w], frames=frames, silu=silu,
+                dtype=str(x.dtype).split(".")[-1], params=str(pdt).split(".")[-1],
+                max_abs_err=err, err_over_tol=ratio, planted_err_over_tol=planted, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes",
+                bound_unit="bytes", bound_share=bound_ms / ms)
+    print(f"[kernel] {json.dumps(case)}", flush=True)
+    return case
+
+
+def _gn_dispatch_us(calls: int = 2000) -> dict:
+    """Host microseconds per GroupNorm call on a small channels-last input
+    the card keeps up with: ``layers.GroupNorm`` on the kernel, the bare
+    ``group_norm.launch``, and the eager chain with ``F.silu`` (what the
+    module ran before the kernel)."""
+    import torch
+    import torch.nn.functional as F
+
+    from univst_torch.models import group_norm as gn
+    from univst_torch.models.layers import GroupNorm
+
+    m = GroupNorm(320, GN_GROUPS, across_frames=True).to("cuda", torch.bfloat16)
+    x = torch.randn(16, 320, 8, 8, device="cuda", dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+
+    def per_call(fn):
+        fn()
+        _sync()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        _sync()
+        return (time.perf_counter() - t) / calls * 1e6
+
+    with torch.inference_mode():
+        out = dict(shape=list(x.shape), calls=calls,
+                   module_us=per_call(lambda: m(x, 16, silu=True)),
+                   launch_us=per_call(lambda: gn.launch(x, m.weight, m.bias, GN_GROUPS, 16,
+                                                        m.eps, True)),
+                   eager_us=per_call(lambda: F.silu(gn.group_norm_plain(
+                       x, m.weight, m.bias, GN_GROUPS, m.eps, 16))))
+    print("[dispatch] group_norm " + json.dumps(out), flush=True)
+    return out
+
+
 def phase_kernels():
     import torch
 
@@ -523,8 +659,20 @@ def phase_kernels():
         _vfa_tokens_case(1, 4, 3, 300, 256, 64, idx, torch.float32, lc=77),  # ragged Lq, fp32
     ]
     _sync()
+    norms = [
+        _gn_case(32, 320, 64, 64, 16, True, plant=True),  # UNet resnet, phase 1 (two branches)
+        _gn_case(16, 320, 64, 64, 16, True),    # UNet resnet, phase 2
+        _gn_case(32, 1920, 32, 32, 16, True),   # UNet up-block resnet
+        _gn_case(32, 320, 64, 64, 1, False),    # UNet transformer norm, per frame
+        _gn_case(16, 1280, 16, 16, 1, False),   # UNet 16x16 transformer norm
+        _gn_case(8, 128, 512, 512, 1, True),    # SVD decoder conv_norm_out (8-frame chunk)
+        _gn_case(4, 128, 1024, 1024, 1, True),  # SD3 VAE decoder conv_norm_out
+        _gn_case(3, 128, 1, 5, 3, True, fp32_params=True),  # ragged: one slice, fp32 w / b
+    ]
+    _sync()
     _dispatch_us()
-    return cases, tokens
+    _gn_dispatch_us()
+    return cases, tokens, norms
 
 
 def _dispatch_us(calls: int = 2000) -> dict:
@@ -557,15 +705,28 @@ def _dispatch_us(calls: int = 2000) -> dict:
 
 
 def _zero_counters():
+    """Zero the counters :func:`_counts` reads."""
     from univst_torch.attention.video_flash import (
         video_flash_attention, video_flash_attention_tokens,
     )
+    from univst_torch.models.group_norm import group_norm_cuda
 
-    counters = {"video_flash_attention": video_flash_attention,
-                "video_flash_attention_tokens": video_flash_attention_tokens}
-    for fn in counters.values():
-        fn.launches = 0
-    return counters
+    video_flash_attention.launches = video_flash_attention_tokens.launches = 0
+    group_norm_cuda.launches = group_norm_cuda.eager_cuda = 0
+
+
+def _counts() -> dict:
+    """The counters of :data:`COUNTERS` as they stand: K1's and K2's
+    launches, the GroupNorm kernel's, and the CUDA GroupNorm calls that took
+    the eager chain."""
+    from univst_torch.attention.video_flash import (
+        video_flash_attention, video_flash_attention_tokens,
+    )
+    from univst_torch.models.group_norm import group_norm_cuda
+
+    return dict(zip(COUNTERS, (video_flash_attention.launches,
+                               video_flash_attention_tokens.launches, group_norm_cuda.launches,
+                               group_norm_cuda.eager_cuda)))
 
 
 def _propagate(feat, mask0, device):
@@ -622,8 +783,10 @@ def _latent_psnr(z0, rec) -> float:
 
 
 def _check_launches(launches, want):
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches}, want {want}")
+    """The counters ``want`` names hold its values."""
+    got = {k: launches.get(k) for k in want}
+    if got != want:
+        raise AssertionError(f"kernel launches {got}, want {want}")
 
 
 def _load_inputs(num_frames: int, px: int, style_frames: int = 1):
@@ -747,9 +910,9 @@ def phase_main_path(steps: int, variant: str = "sd15", tag: str = "main"):
     print(f"[{tag}] built {variant} (random weights, seed 0) in {time.time() - t0:.1f}s",
           flush=True)
 
-    counters = _zero_counters()
+    _zero_counters()
     w = _workflow(pipe, "sd", steps, nf, px, tag)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _counts()
 
     traj, straj, masks, out, rec, stage = (w[k] for k in ("traj", "straj", "masks", "out", "rec",
                                                           "stage"))
@@ -760,7 +923,9 @@ def phase_main_path(steps: int, variant: str = "sd15", tag: str = "main"):
     # reconstruction and the stylization (the style branch runs single-frame),
     # each with the sparse-causal attentions at L >= 1024: 5 at 64x64, 5 at 32x32
     _check_launches(launches, {"video_flash_attention": 10 * 3 * steps,
-                               "video_flash_attention_tokens": 0})
+                               "video_flash_attention_tokens": 0, "group_norm_eager_cuda": 0})
+    if not launches["group_norm"] > 0:
+        raise AssertionError(f"[{tag}]: the GroupNorm kernel never ran ({launches})")
     summary = dict(variant=variant, steps=steps, frames=nf, size=px, stage_s=stage,
                    main_path_s=w["main_s"], workflow_frames_per_s=nf / w["main_s"],
                    stylize_frames_per_s=nf / (stage["stylize"] + stage["decode"]),
@@ -797,13 +962,13 @@ def phase_bench(sd_state, main: dict, steps: int):
 
     pipe, traj, straj, ctx, masks, _ = sd_state
     stage = main["stage"]
-    counters = _zero_counters()
+    _zero_counters()
     info = bench.device_info(pipe.device)
     m = bench.summarize(lambda: _stylize(pipe, "sd", traj, straj, ctx, masks, steps),
                         pipe.num_frames, steps, [stage["stylize"] + stage["decode"]],
                         stage["content_inversion"], main["psnr"],
                         bench.peak_tflops(info["name"]), pipe.device)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _counts()
     line = bench.headline(m, steps, 512, info, on_card=True)
     print("[bench] " + json.dumps(line), flush=True)
     missing = _finite_numbers(line)
@@ -831,7 +996,7 @@ def phase_sd_fallback(sd_state, steps: int):
     pipe, traj, _, ctx, masks, _ = sd_state
     pipe = dataclasses.replace(pipe, style_singleton=False)
     content_rev = torch.flip(traj, dims=[0])
-    counters = _zero_counters()
+    _zero_counters()
     t0 = time.time()
     out = pipe.stylize_latents(content_rev, content_rev,
                                latent_adain(content_rev[0], content_rev[0]),
@@ -839,7 +1004,7 @@ def phase_sd_fallback(sd_state, steps: int):
                                cfg=StyleTransferConfig(num_steps=steps))
     _sync()
     stylize_s = time.time() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _counts()
     if not torch.isfinite(out).all():
         raise AssertionError("fallback stylized latents have non-finite values")
     # phase 1: a 16-frame capture forward and the 2-branch forward a step;
@@ -943,14 +1108,14 @@ def phase_smooth(sd_state, steps: int):
     content_rev = torch.flip(traj, dims=[0])
     style_rev = torch.flip(straj, dims=[0])[:, :1]
     try:
-        counters = _zero_counters()
+        _zero_counters()
         t0 = time.time()
         init = latent_adain(content_rev[0], style_rev[0])
         out = pipe.stylize_latents(content_rev, style_rev, init, torch.cat([ctx] * 3),
                                    mask=masks.float() / 255.0, cfg=cfg)
         _sync()
         stylize_s = time.time() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = _counts()
     finally:
         for h in hooks:
             h.remove()
@@ -1109,9 +1274,9 @@ def phase_ad(steps: int):
           f"CLIP-L; random weights, seed 0) in {build_s:.1f}s; proj_out of all "
           f"{n_mm} motion modules filled from seed 1 (max |w| {w_max:.4g})", flush=True)
 
-    counters = _zero_counters()
+    _zero_counters()
     w = _workflow(pipe, "ad", steps, nf, px, "ad")
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _counts()
 
     traj, masks, rec, stage = w["traj"], w["masks"], w["rec"], w["stage"]
     psnr = _check_outputs({"trajectory": traj, "feature": w["feat"],
@@ -1224,7 +1389,7 @@ def phase_sd3(tag: str, steps: int, nf: int = 16, px: int = 1024):
           f"{mcfg.head_dim}, {len(mcfg.dual_attention_layers)} dual-attention blocks) + T5-XXL "
           f"+ CLIP-L/G (random weights, seed 0) in {time.time() - t0:.1f}s; "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
-    counters = _zero_counters()
+    _zero_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     prompt = _sd3_prompt(pipe)
@@ -1234,7 +1399,7 @@ def phase_sd3(tag: str, steps: int, nf: int = 16, px: int = 1024):
     print(f"[{tag}] encode_prompt: {stage['encode_prompt']:.2f}s, "
           f"peak {peak['encode_prompt']:.2f} GB", flush=True)
     w = _workflow_sd3(pipe, steps, nf, px, tag, prompt)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _counts()
     stage.update(w["stage"])
     peak.update(w["peak"])
     main_s = stage["encode_prompt"] + w["main_s"]
@@ -1283,11 +1448,11 @@ def _profile_forward(name: str, model, fn, want_launches: dict) -> dict:
 
     with torch.inference_mode():
         ms = _time_ms(fn, 2)
-        counters = _zero_counters()
+        _zero_counters()
         with annotate_norms(model), device_trace(
                 os.path.join(REPO, "results", "profile", name)) as prof:
             fn()
-        launches = {k: f.launches for k, f in counters.items()}
+        launches = _counts()
         flops = count_matmul_flops(fn)
         _sync()
     split = device_time_split(prof)
@@ -1324,10 +1489,11 @@ def phase_profile_sd(sd_state, steps: int) -> dict:
         kv = extract_pnp_kv(cap.captured)
     two = pipe._denoise_fn(torch.cat([ctx, ctx]), pipe.pnp_frame_indices, pipe.style_shift_cfg)
     z2 = torch.cat([z, z])
-    k1 = {"video_flash_attention": 10, "video_flash_attention_tokens": 0}
+    k1 = {"video_flash_attention": 10, "video_flash_attention_tokens": 0, "group_norm": 61,
+          "group_norm_eager_cuda": 0}
     got = [_profile_forward("sd15_b1", pipe.unet, lambda: one(z, t, i), k1),
            _profile_forward("sd15_b2", pipe.unet, lambda: two(z2, t, 5, style_kv=kv), k1)]
-    return {k: sum(g[k] for g in got) for k in k1}
+    return {k: sum(g[k] for g in got) for k in COUNTERS}
 
 
 def phase_profile_sd35m(state) -> dict:
@@ -1340,7 +1506,8 @@ def phase_profile_sd35m(state) -> dict:
     one = pipe._denoise_fn(ctx, pooled, None)
     return _profile_forward("sd35m_b1", pipe.mmdit, lambda: one(z, t, 0), {
         "video_flash_attention": 0,
-        "video_flash_attention_tokens": cfg.num_layers + len(cfg.dual_attention_layers)})
+        "video_flash_attention_tokens": cfg.num_layers + len(cfg.dual_attention_layers),
+        "group_norm": 0, "group_norm_eager_cuda": 0})
 
 
 # ---------------------------------------------------------------------------
@@ -1370,10 +1537,10 @@ def phase_stages(sd_state) -> dict:
     K2 none, device time in every split."""
     from univst_torch.tools import bench_stages
 
-    counters = _zero_counters()
+    _zero_counters()
     m = bench_stages.measure(sd_state[0], steps=50, size=512, seed=0, reps=TOOL_REPS,
                              trace_dir=os.path.join(REPO, "results", "stages"))
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _counts()
     print("[stages] " + json.dumps(m), flush=True)
     unseen = [k for k, v in m["device_split"].items() if not v["device_time_seen"]]
     if unseen:
@@ -1401,10 +1568,10 @@ def phase_anatomy(sd_state, stages: dict) -> dict:
     did not."""
     from univst_torch.tools import bench_anatomy
 
-    counters = _zero_counters()
+    _zero_counters()
     m = bench_anatomy.measure(sd_state[0], steps=50, size=512, seed=0, reps=TOOL_REPS,
                               stages=stages)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _counts()
     print("[anatomy] " + json.dumps(m), flush=True)
     bad = _bad_rows(m["rows"])
     if bad:
@@ -1432,10 +1599,10 @@ def phase_sd3_anatomy(state) -> dict:
     from univst_torch.tools import bench_sd3_anatomy as sa
 
     pipe, _, ctx, pooled = state
-    counters = _zero_counters()
+    _zero_counters()
     seg = sa.probe_segments(pipe, ctx, pooled, 1024, TOOL_REPS, SD3_SEGMENT_STEPS,
                             trace_dir=os.path.join(REPO, "results", "sd3_anatomy"))
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _counts()
     attn = sa.probe_attn(pipe.device, pipe.num_frames, 1024, TOOL_REPS)
     mm = sa.probe_matmul(pipe.device, pipe.num_frames, 1024, TOOL_REPS)
     for m in (seg, attn, mm):
@@ -1741,13 +1908,13 @@ def phase_weights_day(sd_state, steps: int):
         t = int(pipe.schedule.timesteps(steps)[i])
         with torch.inference_mode():
             want = pipe._denoise_fn(ctx, SD_BASE_FRAME_INDICES, None)(traj[i], t, i)
-            counters = _zero_counters()
+            _zero_counters()
             got = loaded._denoise_fn(ctx, SD_BASE_FRAME_INDICES, None)(traj[i], t, i)
             _sync()
-            launches = {k: f.launches for k, f in counters.items()}
+            launches = _counts()
         same = [torch.equal(g, w) if w is not None else g is None for g, w in zip(got, want)]
-        _check_launches(launches, {"video_flash_attention": 10,
-                                   "video_flash_attention_tokens": 0})
+        _check_launches(launches, {"video_flash_attention": 10, "video_flash_attention_tokens": 0,
+                                   "group_norm": 61, "group_norm_eager_cuda": 0})
         if not all(same):
             raise AssertionError(f"weights_day: the loaded UNet's forward differs from the "
                                  f"seeded one's (eps, feature equal: {same})")
@@ -2036,9 +2203,9 @@ def _mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int):
     _sync()
     replicate_s = time.time() - t0
     torch.cuda.reset_peak_memory_stats()
-    counters = _zero_counters()
+    _zero_counters()
     w = _workflow(pipe, backbone, steps, nf, px, f"mesh {job} r{rank}")
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _counts()
     by_op = _census_by_op(w["census"])
     stats = dict(job=job, rank=rank, ranks=n, steps=steps, build_s=build_s,
                  replicate_s=replicate_s, stage_s=w["stage"], main_path_s=w["main_s"],
@@ -2360,13 +2527,13 @@ def _mesh_smooth(pipe, fed: dict, steps: int) -> dict:
         return timed
 
     lk = _counted_flow(flow_mod.lucas_kanade_flow, batches)
-    counters = _zero_counters()
+    _zero_counters()
     spipe = _with_smooth_eps(dataclasses.replace(pipe, flow_fn=lk), timer)
     with collect_collectives() as recs:
         out = _stylize(spipe, "sd", *(fed[k].to(dev) for k in ("traj", "straj", "ctx", "masks")),
                        steps, **MESH_SMOOTH)
         _sync()
-    res = dict(out=out.cpu(), launches={name: fn.launches for name, fn in counters.items()},
+    res = dict(out=out.cpu(), launches=_counts(),
                step_s=step_s, flow_batches=batches,
                halo=[(op, nbytes, sec) for op, nbytes, site, sec in recs
                      if site == "smooth_halo"])
@@ -2737,7 +2904,7 @@ def _mesh_jobs() -> dict:
     the encode's batch-shape floor beside it. ``MESH_SMOOTH_JOB``'s runs
     also stylize with the smoother (``_check_mesh_smooth``)."""
     os.makedirs(os.path.join(REPO, "results"), exist_ok=True)
-    launches = {"video_flash_attention": 0, "video_flash_attention_tokens": 0}
+    launches = dict.fromkeys(COUNTERS, 0)
     refs = {}
     smooth_launches = dict(launches)
     for job, (backbone, dtype_name, px, nf, n, steps) in MESH_JOBS.items():
@@ -2996,9 +3163,9 @@ def _sd3_mesh_rank(rank: int, n: int, out_dir: str, job: str, steps: int):
     pipe = pipe.with_mesh(mesh)
     _sync()
     replicate_s = time.time() - t0
-    counters = _zero_counters()
+    _zero_counters()
     w = _workflow_sd3(pipe, steps, nf, px, f"mesh {job} r{rank}", prompt)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _counts()
     cfg = pipe.mmdit.cfg
     per_forward = cfg.num_layers + len(cfg.dual_attention_layers)
     _check_launches(launches, {"video_flash_attention": 0,
@@ -3047,7 +3214,7 @@ def phase_mesh_sd3() -> dict:
     2 x 2, bf16 at 512 px, each with its one-card bf16 run and fp32 floor,
     gated as the ``[mesh]`` jobs are (``_check_mesh``). Returns the K2
     launches of the sharded workflows, summed over ranks."""
-    launches = {"video_flash_attention": 0, "video_flash_attention_tokens": 0}
+    launches = dict.fromkeys(COUNTERS, 0)
     for job, (variant, _, px, nf, _, _, steps) in SD3_MESH_JOBS.items():
         t0 = time.time()
 
@@ -3127,13 +3294,13 @@ def _sd3_tp_forward_rank(rank: int, n: int, out_dir: str, probe: dict):
 
     mesh = _rank_mesh(rank, n, out_dir, SD3_TP_FORWARD["tensor"])
     pipe = _mmdit_pipe(torch.bfloat16).with_mesh(mesh)
-    counters = _zero_counters()
+    _zero_counters()
     with collect_collectives() as recs:
         forward = _forward_pair_sd3(pipe, probe)
     stats = dict(rank=rank, tensor_rank=mesh.tensor_rank,
                  heads=sorted({m.num_heads for m in pipe.mmdit.modules()
                                if isinstance(m, JointAttention)}),
-                 launches={name: fn.launches for name, fn in counters.items()},
+                 launches=_counts(),
                  census=summarize(recs, by_site=True))
     print(f"[mesh_sd3 tp] {json.dumps(stats)}", flush=True)
     torch.save(stats, os.path.join(out_dir, f"stats{rank}.pt"))
@@ -3186,7 +3353,7 @@ def phase_sd3_tp_forward() -> dict:
     if heads != want_heads or any(r != reduces[0] for r in reduces):
         raise AssertionError(f"[mesh_sd3 tp] heads {heads} (want {want_heads}) or "
                              f"all-reduce MB differ by rank: {reduces}")
-    launches = {"video_flash_attention": 0, "video_flash_attention_tokens": 0}
+    launches = dict.fromkeys(COUNTERS, 0)
     for st in stats:
         _check_launches(st["launches"], {"video_flash_attention": 0,
                                          "video_flash_attention_tokens": 4 * job["layers"]})
@@ -3195,8 +3362,8 @@ def phase_sd3_tp_forward() -> dict:
     return launches
 
 
-def _entry(name, replaces, launches, cases, main_case):
-    return dict(name=name, route="cuda", source=SOURCE, replaces=replaces, launches=launches,
+def _entry(name, replaces, launches, cases, main_case, source=SOURCE):
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                 max_abs_err=max(c["max_abs_err"] for c in cases if c["dtype"] == "bfloat16"),
                 err_over_tol=max(c["err_over_tol"] for c in cases),
                 planted_err_over_tol=main_case["planted_err_over_tol"],
@@ -3245,7 +3412,7 @@ def main(argv=None) -> int:
 
     smi = clock("device", phase_device)
     clock("build", phase_build)
-    cases, tokens = clock("kernels", phase_kernels)
+    cases, tokens, norms = clock("kernels", phase_kernels)
     sd_launches, sd_state, main_run = clock("main", phase_main_path, args.steps)
     bench_launches = clock("bench", phase_bench, sd_state, main_run, args.steps)
     fallback_launches = clock("sd_fallback", phase_sd_fallback, sd_state, args.steps)
@@ -3266,7 +3433,7 @@ def main(argv=None) -> int:
         clock("raft", phase_raft, smooth_frames)
         del smooth_frames
         torch.cuda.empty_cache()
-        clock("ad", phase_ad, args.ad_steps)
+        ad_launches = clock("ad", phase_ad, args.ad_steps)
         torch.cuda.empty_cache()
         recipe = start_recipe(os.path.join(weights_dir, "sd"))
         try:
@@ -3303,11 +3470,22 @@ def main(argv=None) -> int:
     k2_paths = dict(sd3_launches, profile=profile_launches, **mesh_launches,
                     mesh_sd3=mesh_sd3_launches, mesh_sd3_tp=mesh_sd3_tp_launches)
     k2_paths = {k: v["video_flash_attention_tokens"] for k, v in k2_paths.items()}
+    gn_paths = {"sd": sd_launches, "sd21": sd21_launches, "bench": bench_launches,
+                "sd_fallback": fallback_launches, "weights_day": weights_launches,
+                "smooth": smooth_launches, "profile": profile_launches,
+                "stages": stages_launches, "anatomy": anatomy_launches, "ad": ad_launches,
+                **sd3_launches, **mesh_launches, "mesh_sd3": mesh_sd3_launches,
+                "mesh_sd3_tp": mesh_sd3_tp_launches}
+    gn_eager = {k: v["group_norm_eager_cuda"] for k, v in gn_paths.items()}
+    gn_paths = {k: v["group_norm"] for k, v in gn_paths.items()}
     entries = [
         dict(_entry("video_flash_attention", TPU_KERNEL, sum(k1_paths.values()),
                     cases + shard_cases, cases[0]), launches_by_path=k1_paths),
         dict(_entry("video_flash_attention_tokens", TPU_KERNEL_FOLDED, sum(k2_paths.values()),
                     tokens + shard_tokens, tokens[0]), launches_by_path=k2_paths),
+        dict(_entry("group_norm", GN_REPLACES, sum(gn_paths.values()), norms, norms[0],
+                    source=GN_SOURCE), launches_by_path=gn_paths,
+             eager_cuda_by_path=gn_eager),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -42,6 +42,7 @@ def test_every_module_imports_without_jax():
     assert "univst_torch.pipelines.sd" in mods and len(mods) > 20
     assert {"univst_torch.utils.profiling", "univst_torch.utils.flops",
             "univst_torch.models.lora", "univst_torch.models.sparse_controlnet",
+            "univst_torch.models.group_norm",
             "univst_torch.distributed.mesh", "univst_torch.distributed.comm",
             "univst_torch.distributed.census", "univst_torch.distributed.tp",
             "univst_torch.bench"} <= set(mods)

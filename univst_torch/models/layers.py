@@ -29,6 +29,7 @@ from univst_torch.attention.ops import (
     video_mha,
 )
 from univst_torch.core.config import FrameIndex, StyleShiftConfig
+from univst_torch.models import group_norm as gn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,7 +120,15 @@ class GroupNorm(nn.Module):
     transformer blocks and the VAE. Statistics and affine run in fp32 (float64
     on a float64 input: the parity tests' referee).
     Under a frame ``shard`` the frame-spanning statistics combine every
-    rank's (``comm.sharded_var_mean``).
+    rank's (``comm.sharded_var_mean``). ``silu=True`` applies the SiLU that
+    follows the norm in the resnets.
+
+    A bf16 CUDA input the kernel takes (channels-last, as the UNet and the
+    VAEs run: ``group_norm.fits``), outside the sharded frame-spanning form
+    and outside autograd, runs the CUDA kernel
+    (``group_norm.group_norm_cuda``, the SiLU fused before its one bf16
+    rounding); every other call runs the eager chain
+    (``group_norm.group_norm_plain``), then ``F.silu``.
     """
 
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5,
@@ -131,27 +140,19 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x, num_frames: int = 1, shard=None):
-        n, c = x.shape[:2]
-        g = self.num_groups
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    def forward(self, x, num_frames: int = 1, shard=None, silu: bool = False):
         shard = shard if self.across_frames else None
-        if self.across_frames and (num_frames > 1 or shard is not None):
-            xg = xf.reshape(n // num_frames, num_frames, g, c // g, -1)
-            dims = (1, 3, 4)
-        else:
-            xg = xf.reshape(n, g, c // g, -1)
-            dims = (2, 3)
-        if shard is None:
-            var, mean = torch.var_mean(xg, dim=dims, unbiased=False, keepdim=True)
-        else:
-            from univst_torch.distributed.comm import sharded_var_mean
-
-            var, mean = sharded_var_mean(xg, dims, shard, site="group_norm")
-        xn = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        shape = (1, c) + (1,) * (x.dim() - 2)
-        out = xn * self.weight.to(xf.dtype).reshape(shape) + self.bias.to(xf.dtype).reshape(shape)
-        return out.to(x.dtype)
+        frames = num_frames if self.across_frames else 1
+        if x.is_cuda:
+            grad = torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad)
+            if (shard is None and x.dtype == torch.bfloat16 and not grad
+                    and gn.fits(x, self.num_groups)):
+                return gn.launch(x, self.weight, self.bias, self.num_groups, frames, self.eps,
+                                 silu)
+            gn.group_norm_cuda.eager_cuda += 1
+        out = gn.group_norm_plain(x, self.weight, self.bias, self.num_groups, self.eps, frames,
+                                  shard)
+        return F.silu(out) if silu else out
 
 
 class GEGLU(nn.Module):

@@ -209,10 +209,10 @@ class ADResnetBlock(nn.Module):
         self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x, temb, num_frames: int):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x, silu=True))
         # temb is per video [B, C]: one copy per frame
         t = self.time_emb_proj(F.silu(temb)).repeat_interleave(num_frames, dim=0)
-        h = self.conv2(F.silu(self.norm2(h + t[:, :, None, None])))
+        h = self.conv2(self.norm2(h + t[:, :, None, None], silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -357,5 +357,5 @@ class UNetAnimateDiff(nn.Module):
             if cfg.capture_up_block is not None and bi == cfg.capture_up_block:
                 # batch element 0 == branch 0, as the reference saves sample[0]
                 captured = h[:f].permute(0, 2, 3, 1)
-        h = self.conv_out(F.silu(self.conv_norm_out(h)))
+        h = self.conv_out(self.conv_norm_out(h, silu=True))
         return h.permute(0, 2, 3, 1), captured

@@ -155,10 +155,13 @@ class SpatioTemporalTransformer(nn.Module):
         if context.shape[0] != bf:
             context = context.repeat_interleave(video_ctx.num_frames, dim=0)
         tokens = self.transformer_blocks[0](tokens, context, video_ctx, style_ctx)
+        # back to channels-last [bf, c, hh, ww] through a 4-d view, so that a single frame's
+        # batch stride is a whole frame's: cuDNN then keeps channels-last at bf = 1 as at
+        # bf > 1, and the GroupNorms that follow stay on the kernel (group_norm.fits)
         if self.linear:
-            h = self.proj_out(tokens).transpose(1, 2).reshape(bf, c, hh, ww)
+            h = self.proj_out(tokens).reshape(bf, hh, ww, c).permute(0, 3, 1, 2)
         else:
-            h = self.proj_out(tokens.transpose(1, 2).reshape(bf, c, hh, ww))
+            h = self.proj_out(tokens.reshape(bf, hh, ww, c).permute(0, 3, 1, 2))
         return h + x
 
 
@@ -177,11 +180,11 @@ class ResnetBlockP3D(nn.Module):
         self.conv_shortcut = PseudoConv3d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x, temb, num_frames: int, shard=None):
-        h = self.conv1(F.silu(self.norm1(x, num_frames, shard)), num_frames, shard)
+        h = self.conv1(self.norm1(x, num_frames, shard, silu=True), num_frames, shard)
         # temb is per video [B, C]: one copy per frame
         t = self.time_emb_proj(F.silu(temb)).repeat_interleave(num_frames, dim=0)
         h = h + t[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h, num_frames, shard)), num_frames, shard)
+        h = self.conv2(self.norm2(h, num_frames, shard, silu=True), num_frames, shard)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -336,5 +339,6 @@ class UNetPseudo3D(nn.Module):
                 # reference saves sample[0] as [F, H, W, C]
                 # (unet_3d_condition.py:429-436); batch element 0 == branch 0
                 captured = h[:f].permute(0, 2, 3, 1)
-        h = self.conv_out(F.silu(self.conv_norm_out(h, f, video_ctx.shard)), f, video_ctx.shard)
+        h = self.conv_out(self.conv_norm_out(h, f, video_ctx.shard, silu=True), f,
+                          video_ctx.shard)
         return h.permute(0, 2, 3, 1), captured

@@ -82,8 +82,8 @@ class VAEResnetBlock(nn.Module):
         self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x, silu=True))
+        h = self.conv2(self.norm2(h, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -102,8 +102,8 @@ class TemporalResnetBlock(nn.Module):
         self.conv_shortcut = nn.Conv3d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x, num_frames: int, shard=None):
-        h = _from_5d(_time_conv(self.conv1, _to_5d(F.silu(self.norm1(x)), num_frames), shard))
-        h = _from_5d(_time_conv(self.conv2, _to_5d(F.silu(self.norm2(h)), num_frames), shard))
+        h = _from_5d(_time_conv(self.conv1, _to_5d(self.norm1(x, silu=True), num_frames), shard))
+        h = _from_5d(_time_conv(self.conv2, _to_5d(self.norm2(h, silu=True), num_frames), shard))
         if self.conv_shortcut is not None:
             x = _from_5d(self.conv_shortcut(_to_5d(x, num_frames)))
         return x + h
@@ -208,7 +208,7 @@ class Encoder(nn.Module):
         x = self.mid_block.resnets[0](x)
         x = self.mid_block.attentions[0](x)
         x = self.mid_block.resnets[1](x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x, silu=True))
 
 
 class Decoder(nn.Module):
@@ -255,7 +255,7 @@ class Decoder(nn.Module):
                 x = self._res(r, x, num_frames, shard)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0].conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        x = self.conv_out(self.conv_norm_out(x, silu=True))
         if self.temporal:
             x = _from_5d(_time_conv(self.time_conv_out, _to_5d(x, num_frames), shard))
         return x

@@ -62,11 +62,17 @@ RANGE_PREFIX = "univst::"
 VFA_RANGE = RANGE_PREFIX + "vfa "
 
 
+# Counters a root span carries: name -> a function that returns the count as
+# it stands. A module registers its own; a root's attributes gain each
+# one's change over its job.
+JOB_COUNTERS = {}
+
+
 class _OpenSpan:
     """One span site's span while it is open (see :meth:`SpanRecorder.span`)."""
 
     __slots__ = ("rec", "name", "attrs", "device", "rooted", "id", "job", "parent", "t0",
-                 "events", "rf")
+                 "events", "rf", "counts")
 
     def __init__(self, rec: "SpanRecorder", name: str, device, attrs: dict):
         self.rec, self.name, self.device, self.attrs = rec, name, device, attrs
@@ -87,6 +93,8 @@ class _OpenSpan:
             self.job = root.id
             self.parent = stack[-1].id if stack else None
             self.device = root.device
+            self.counts = ({k: f() for k, f in JOB_COUNTERS.items()} if root is self
+                           else None)
             if self.name in DEVICE_TIMED and self.device is not None \
                     and torch.device(self.device).type == "cuda":
                 self.events = (torch.cuda.Event(enable_timing=True),
@@ -104,6 +112,8 @@ class _OpenSpan:
             t1 = time.perf_counter_ns()
             if self.events is not None:
                 self.events[1].record(torch.cuda.current_stream(self.device))
+            if self.counts is not None:
+                self.attrs.update((k, JOB_COUNTERS[k]() - v) for k, v in self.counts.items())
             rec._done.append((self, t1))
         if self.rf is not None:
             self.rf.__exit__(None, None, None)
@@ -121,7 +131,8 @@ class SpanRecorder:
     * events: each span keeps its name, job, parent, attributes and host
       ``perf_counter_ns`` at entry and exit, and a :data:`DEVICE_TIMED` span
       of a job on a CUDA device records a CUDA event on the current stream
-      at each end. :meth:`take` returns the finished spans.
+      at each end. A root's attributes gain its job's change of each of
+      :data:`JOB_COUNTERS`. :meth:`take` returns the finished spans.
     * ranges: each span also opens a ``torch.profiler.record_function``
       named ``univst::<name>``, so a profiled run holds the spans on the
       profiler's clock beside the device operations; the video flash
